@@ -1,0 +1,68 @@
+"""Carry a reference index's state into the port.
+
+A built Pyramid index is the state this system serves from, in the role
+weights play for a model. :func:`index_from_arrays` takes it as plain
+arrays and dicts -- the config fields, the meta ``HNSWGraph`` fields,
+``part_of_center``, the sub-graphs' fields, and the int8 grid's manifest
+dict when there is one -- and returns the port's ``PyramidIndex`` on a
+device. It imports nothing of the reference package: a caller extracts
+the arrays (for example with ``dataclasses.asdict`` on each graph) and
+passes them in.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+
+from repro_torch.common.config import PyramidConfig
+from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.core.hnsw import HNSWGraph
+from repro_torch.core.meta_index import PyramidIndex
+from repro_torch.core.quant import QuantParams
+
+GRAPH_FIELDS = ("data", "ids", "neighbors", "levels", "entry", "metric",
+                "tags")
+
+
+def graph_from_arrays(arrays: Mapping) -> HNSWGraph:
+    """An ``HNSWGraph`` from its fields (``GRAPH_FIELDS``; ``tags``
+    optional)."""
+    tags = arrays.get("tags")
+    return HNSWGraph(
+        data=np.ascontiguousarray(arrays["data"], dtype=np.float32),
+        ids=np.asarray(arrays["ids"], dtype=np.int64),
+        neighbors=[np.asarray(lv, dtype=np.int32)
+                   for lv in arrays["neighbors"]],
+        levels=np.asarray(arrays["levels"], dtype=np.int32),
+        entry=int(arrays["entry"]),
+        metric=str(arrays["metric"]),
+        tags=None if tags is None else np.asarray(tags, dtype=np.int64))
+
+
+def index_from_arrays(config: Mapping, meta: Mapping,
+                      part_of_center: np.ndarray, subs: List[Mapping], *,
+                      quant: Optional[Dict] = None,
+                      build_stats: Optional[dict] = None,
+                      device: DeviceLike = "cuda") -> PyramidIndex:
+    """The port's ``PyramidIndex`` from a reference index's arrays.
+
+    Args:
+      config: ``PyramidConfig`` fields.
+      meta / subs: graph fields (see :func:`graph_from_arrays`).
+      part_of_center: [m] partition label of every meta vertex.
+      quant: the int8 grid as its manifest dict
+        (``QuantParams.to_manifest()``), when the index has one.
+      device: where the index lives (``"cuda"`` unless asked otherwise).
+    """
+    dev = resolve_device(device)
+    cfg = PyramidConfig(**{k: v for k, v in dict(config).items()
+                           if k in PyramidConfig.__dataclass_fields__})
+    index = PyramidIndex(
+        config=cfg, meta=graph_from_arrays(meta),
+        part_of_center=np.asarray(part_of_center, dtype=np.int32),
+        subs=[graph_from_arrays(g) for g in subs],
+        build_stats=dict(build_stats or {}), device=dev)
+    if quant is not None:
+        index.attach_quant_params(QuantParams.from_manifest(quant))
+    return index

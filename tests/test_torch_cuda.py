@@ -1,0 +1,94 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on the
+card. Marked ``cuda``: without a CUDA device every test here skips. Run
+them on a GPU machine with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+
+Tolerances: ids must be equal in at least 99.9% of positions (the kernel
+sums a dot product in another order than cuBLAS, which can swap two
+candidates whose scores differ in the last bit), and scores of equal ids
+agree to rtol 1e-5, atol 1e-4.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.common.config import PyramidConfig
+from repro_torch.core import distributed as TD
+from repro_torch.core.meta_index import build_pyramid_index
+from repro_torch.data.synthetic import clustered_vectors, query_set
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.beam_search import beam_search_cuda, beam_search_ref
+from repro_torch.kernels.merge_topk import merge_topk_cuda, merge_topk_ref
+from repro_torch.kernels.topk_distance import (topk_similarity_cuda,
+                                               topk_similarity_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _close(ids_k, ids_r, s_k, s_r):
+    same = ids_k == ids_r
+    assert same.float().mean().item() >= 0.999
+    torch.testing.assert_close(s_k[same], s_r[same], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("quantized", (False, True), ids=("f32", "int8"))
+@pytest.mark.parametrize("metric", ("l2", "ip", "angular"))
+def test_beam_kernel_matches_plain(cuda, metric, quantized):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    s, n, d, m0, c = 2, 4096, 128, 32, 64
+    x = torch.randn(s, n, d, device=cuda, generator=g)
+    bottom = torch.randint(-1, n, (s, n, m0), device=cuda, generator=g,
+                           dtype=torch.int32)
+    q = torch.randn(s, c, d, device=cuda, generator=g)
+    e = torch.randint(0, n, (s, c), device=cuda, generator=g,
+                      dtype=torch.int32)
+    scale = zero = None
+    if quantized:
+        scale = torch.full((d,), 0.03, device=cuda)
+        zero = torch.zeros(d, device=cuda)
+        x = torch.clamp(torch.round(x / 0.03), -127, 127).to(torch.int8)
+    kw = dict(metric=metric, ef=100, max_iters=400, scale=scale, zero=zero)
+    s_k, i_k = beam_search_cuda(x, bottom, q, e, **kw)
+    s_r, i_r = beam_search_ref(x, bottom, q, e, **kw)
+    _close(i_k, i_r, s_k, s_r)
+
+
+def test_merge_and_topk_kernels_match_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    sc = torch.randn(256, 640, device=cuda, generator=g)
+    ids = torch.randint(-1, 300, (256, 640), device=cuda, generator=g,
+                        dtype=torch.int32)
+    k_s, k_i = merge_topk_cuda(sc, ids, k=40)
+    r_s, r_i = merge_topk_ref(sc, ids, k=40)
+    assert torch.equal(k_i, r_i) and torch.equal(k_s, r_s)
+    q = torch.randn(512, 128, device=cuda, generator=g)
+    x = torch.randn(1000, 128, device=cuda, generator=g)
+    for k, metric in ((1, "l2"), (16, "ip")):
+        k_s, k_i = topk_similarity_cuda(q, x, k=k, metric=metric)
+        r_s, r_i = topk_similarity_ref(q, x, k=k, metric=metric)
+        _close(k_i, r_i, k_s, r_s)
+
+
+def test_search_on_card_matches_cpu(cuda):
+    x = clustered_vectors(3000, 32, 24, seed=0)
+    q = query_set(x, 64, seed=1)
+    cfg = PyramidConfig(num_shards=4, meta_size=64, sample_size=2000,
+                        max_degree=12, max_degree_upper=6,
+                        ef_construction=40, ef_search=40)
+    reset_launch_counts()
+    index = build_pyramid_index(x, cfg)
+    ids, _, _ = TD.search_single_host(index, q, 10)
+    assert all(v > 0 for v in launch_counts().values())
+    cpu = build_pyramid_index(x, cfg, device="cpu")
+    ids_cpu, _, _ = TD.search_single_host(cpu, q, 10)
+    truth = np.argsort(-(2 * q @ x.T - (x * x).sum(1)), axis=1)[:, :10]
+    rec = [np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i, truth)])
+           for i in (ids, ids_cpu)]
+    assert rec[0] >= 0.9 and abs(rec[0] - rec[1]) <= 0.02

@@ -1,0 +1,59 @@
+"""``repro_torch`` stands alone: every module imports without JAX and
+without any module of the reference package, and the entry points run on
+the card unless the caller asks for the CPU."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.common.config import PyramidConfig
+from repro_torch.convert import index_from_arrays
+from repro_torch.core import distributed as TD
+from repro_torch.core.hnsw import build_hnsw
+from repro_torch.core.meta_index import PyramidIndex, build_pyramid_index
+
+MODULES = sorted(m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_reference():
+    assert "repro_torch.kernels.beam_search.ops" in MODULES
+    code = ("import importlib, sys\n"
+            f"for name in {MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "'jax.') or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    src = os.path.dirname(os.path.dirname(repro_torch.__file__))
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_entry_points_need_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
+    cfg = PyramidConfig(num_shards=2, meta_size=8, sample_size=40,
+                        max_degree=4, max_degree_upper=2, ef_construction=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_pyramid_index(x, cfg)
+    g = build_hnsw(x[:10], max_degree=4, max_degree_upper=2,
+                   ef_construction=8)
+    fields = {f: getattr(g, f) for f in ("data", "ids", "neighbors",
+                                         "levels", "entry", "metric")}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        index_from_arrays({}, fields, np.zeros(10, np.int32), [fields])
+    index = PyramidIndex(config=cfg, meta=g,
+                         part_of_center=np.zeros(10, np.int32), subs=[g],
+                         build_stats={})
+    assert index.device.type == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TD.search_single_host(index, x[:2], 3)

@@ -1,0 +1,342 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+For each module that holds a Hopper kernel (``beam_search``,
+``merge_topk``, ``topk_distance``) the same numpy inputs go through the
+reference (its jnp oracle, its numpy twin, or its Pallas kernel in
+interpret mode) and through the port's dispatch, which on CPU tensors
+takes the plain PyTorch version. Ids must be equal; scores agree to
+rtol/atol 1e-5 (l2 to atol 1e-4, for the cancellation in
+``2q.x - |q|^2 - |x|^2``); k-means centres to 1e-4 from the same start.
+Float inputs are drawn from a normal distribution so that no two scores
+tie; integer-grid cases, whose ties are exact, are held against the
+numpy twin, which breaks ties as the port does (-0.0 == +0.0).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import kmeans as RK
+from repro.core import metrics as RM
+from repro.core.quant import QuantParams
+from repro.kernels.beam_search import beam_search_np as ref_beam_np
+from repro.kernels.beam_search import beam_search_ref as ref_beam
+from repro.kernels.beam_search.ops import _apply_filter as ref_apply_filter
+from repro.kernels.merge_topk import merge_topk_np as ref_merge_np
+from repro.kernels.merge_topk import merge_topk_ref as ref_merge
+from repro.kernels.quant_distance import quant_scores_ref
+from repro.kernels.topk_distance import topk_similarity_ref as ref_topk
+from repro.kernels.topk_distance.kernel import topk_similarity_pallas
+from repro_torch.core import kmeans as TK
+from repro_torch.core import metrics as TM
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels.beam_search import beam_search, beam_search_cuda
+from repro_torch.kernels.beam_search import beam_search_np
+from repro_torch.kernels.beam_search import ref as TB
+from repro_torch.kernels.beam_search.ops import _apply_filter
+from repro_torch.kernels.merge_topk import merge_topk, merge_topk_cuda
+from repro_torch.kernels.merge_topk import merge_topk_np
+from repro_torch.kernels.quant_distance import quant_scores
+from repro_torch.kernels.topk_distance import (topk_similarity,
+                                               topk_similarity_cuda)
+
+METRICS = ("l2", "ip", "angular")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _tol(metric):
+    return dict(rtol=1e-5, atol=1e-4 if metric == "l2" else 1e-5)
+
+
+def _float_case(s, n, d, c, m0, seed, quantized=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(s, n, d)).astype(np.float32)
+    bottom = rng.integers(-1, n, size=(s, n, m0)).astype(np.int32)
+    queries = rng.normal(size=(s, c, d)).astype(np.float32)
+    entries = rng.integers(0, n, size=(s, c)).astype(np.int32)
+    scale = zero = None
+    if quantized:
+        params = QuantParams.from_data(x.reshape(s * n, d))
+        x = np.stack([params.quantize(x[i]) for i in range(s)])
+        scale, zero = params.scale, params.zero
+    return x, bottom, queries, entries, scale, zero
+
+
+def _grid_case(s, n, d, c, m0, seed):
+    """Integer-grid vectors (exact in f32) over -1-padded adjacency, the
+    reference tests' adversarial case generator."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-8, 9, size=(s, n, d)).astype(np.float32)
+    bottom = rng.integers(-1, n, size=(s, n, m0)).astype(np.int32)
+    queries = rng.integers(-8, 9, size=(s, c, d)).astype(np.float32)
+    entries = rng.integers(0, n, size=(s, c)).astype(np.int32)
+    return x, bottom, queries, entries, None, None
+
+
+def _port_walk(x, bottom, queries, entries, scale, zero, **kw):
+    t = torch.as_tensor
+    s, i = beam_search(t(x), t(bottom), t(queries), t(entries),
+                       scale=None if scale is None else t(scale),
+                       zero=None if zero is None else t(zero), **kw)
+    return s.numpy(), i.numpy()
+
+
+def _against_np_twin(case, **kw):
+    """Port walk == reference numpy twin == port numpy twin."""
+    s_p, i_p = _port_walk(*case, **kw)
+    x, b, q, e, sc, zr = case
+    s_n, i_n = ref_beam_np(x, b, q, e, scale=sc, zero=zr, **kw)
+    s_t, i_t = beam_search_np(x, b, q, e, scale=sc, zero=zr, **kw)
+    np.testing.assert_array_equal(i_p, i_n)
+    np.testing.assert_array_equal(i_t, i_n)
+    np.testing.assert_allclose(s_p, s_n, **_tol(kw["metric"]))
+    np.testing.assert_array_equal(s_t, s_n)
+    return s_p, i_p
+
+
+@pytest.mark.parametrize("quantized", (False, True), ids=("f32", "int8"))
+@pytest.mark.parametrize("metric", METRICS)
+def test_beam_walk_matches_reference(metric, quantized):
+    case = _float_case(2, 60, 8, 5, 6, seed=7, quantized=quantized)
+    kw = dict(metric=metric, ef=12, max_iters=400)
+    s_p, i_p = _against_np_twin(case, **kw)
+    x, b, q, e, sc, zr = case
+    j = jnp.asarray
+    sz = {} if sc is None else dict(scale=j(sc), zero=j(zr))
+    s_r, i_r = ref_beam(j(x), j(b), j(q), j(e), **kw, **sz)
+    np.testing.assert_array_equal(i_p, np.asarray(i_r))
+    np.testing.assert_allclose(s_p, np.asarray(s_r), **_tol(metric))
+    assert s_p.shape == (2, 5, 12) and i_p.dtype == np.int32
+
+
+@pytest.mark.parametrize("c", (1, 5))
+def test_beam_walk_work_counts(c):
+    """``return_work`` leaves the walk as it is and counts what a bound
+    needs: with one slot a graph's distinct data rows are its scored rows
+    and its distinct adjacency rows its expansions; with more slots the
+    union lies between the largest slot's count and the sum of them.
+    Adjacency rows hold no node twice, so no row is scored twice."""
+    case = _float_case(2, 60, 8, c, 6, seed=11)
+    rng = np.random.default_rng(12)
+    bottom = np.stack([np.stack([rng.permutation(60)[:6] for _ in range(60)])
+                       for _ in range(2)]).astype(np.int32)
+    bottom[rng.random(bottom.shape) < 0.2] = -1
+    t = [torch.as_tensor(a) for a in (case[0], bottom, *case[2:4])]
+    kw = dict(metric="l2", ef=12, max_iters=400)
+    s_w, i_w, expansions, scored, rows, adj = TB.beam_search_ref(
+        *t, return_work=True, **kw)
+    s_p, i_p = TB.beam_search_ref(*t, **kw)
+    assert torch.equal(i_w, i_p) and torch.equal(s_w, s_p)
+    assert rows.shape == adj.shape == (2,)
+    if c == 1:
+        assert torch.equal(rows, scored[:, 0])
+        assert torch.equal(adj, expansions[:, 0])
+    for got, per_slot in ((rows, scored), (adj, expansions)):
+        assert torch.all(got >= per_slot.max(dim=1).values)
+        assert torch.all(got <= torch.clamp(per_slot.sum(dim=1), max=60))
+    assert torch.all(adj <= rows)
+
+
+def test_duplicate_neighbour_slots_stay_in_parity():
+    """A node listed twice in one adjacency row passes the visited test
+    twice (the test precedes the mark)."""
+    n, m0 = 6, 4
+    bottom = np.full((1, n, m0), -1, np.int32)
+    for i in range(n):
+        bottom[0, i] = [(i + 1) % n, (i + 1) % n, (i + 2) % n, -1]
+    x = np.arange(n, dtype=np.float32)[None, :, None] * np.ones(
+        (1, n, 3), np.float32)
+    queries = np.full((1, 2, 3), 2.0, np.float32)
+    entries = np.array([[0, 3]], np.int32)
+    _, i_p = _against_np_twin((x, bottom, queries, entries, None, None),
+                              metric="l2", ef=4, max_iters=400)
+    assert any(len(set(r[r >= 0])) < (r >= 0).sum() for r in i_p[0])
+
+
+def test_revisit_ring_and_isolated_entry():
+    n, m0 = 6, 3
+    bottom = np.full((1, n, m0), -1, np.int32)
+    for i in range(n):
+        bottom[0, i] = [(i + 1) % n, (i + 2) % n, -1]
+    x = np.arange(n, dtype=np.float32)[None, :, None] * np.ones(
+        (1, n, 3), np.float32)
+    queries = np.full((1, 2, 3), 2.0, np.float32)
+    entries = np.array([[0, 3]], np.int32)
+    _, i_p = _against_np_twin((x, bottom, queries, entries, None, None),
+                              metric="l2", ef=4, max_iters=400)
+    for row in i_p.reshape(-1, 4):
+        assert len(set(row[row >= 0].tolist())) == (row >= 0).sum()
+    lone = (np.ones((1, 5, 2), np.float32), np.full((1, 5, 3), -1, np.int32),
+            np.full((1, 3, 2), 0.5, np.float32),
+            np.array([[4, 0, 2]], np.int32), None, None)
+    s_p, i_p = _against_np_twin(lone, metric="ip", ef=4, max_iters=400)
+    np.testing.assert_array_equal(i_p[0, :, 0], [4, 0, 2])
+    assert (i_p[0, :, 1:] == -1).all() and np.isneginf(s_p[0, :, 1:]).all()
+
+
+@pytest.mark.parametrize("max_iters,ef", ((0, 6), (1, 6), (3, 6), (400, 64)))
+def test_iteration_bound_and_ef_clamp(max_iters, ef):
+    case = _grid_case(2, 30, 5, 4, 4, seed=23)
+    s_p, _ = _against_np_twin(case, metric="l2", ef=ef, max_iters=max_iters)
+    assert s_p.shape[-1] == min(ef, 30)
+
+
+def test_exact_ties_break_like_the_numpy_twin():
+    n = 8
+    x = np.ones((1, n, 4), np.float32)          # all rows identical
+    bottom = np.random.default_rng(5).integers(
+        -1, n, size=(1, n, 3)).astype(np.int32)
+    case = (x, bottom, np.ones((1, 4, 4), np.float32),
+            np.array([[0, 3, 5, 7]], np.int32), None, None)
+    _against_np_twin(case, metric="l2", ef=5, max_iters=400)
+
+
+def test_pinned_signed_zero_case_matches_numpy_twin():
+    """Hypothesis case (2, 19, 1, 1, 3, 1, 1, 'ip') of the reference's
+    three-way property test: every score of shard 0 is +-0, where
+    ``lax.top_k`` ranks +0.0 above -0.0. The port follows the numpy twin
+    and the Pallas kernel (-0.0 == +0.0, lowest position wins)."""
+    case = _grid_case(2, 19, 1, 1, 3, seed=1)
+    _against_np_twin(case, metric="ip", ef=1, max_iters=400)
+
+
+def test_filter_mask_matches_reference():
+    rng = np.random.default_rng(3)
+    s, n, c, e = 2, 30, 4, 7
+    scores = rng.normal(size=(s, c, e)).astype(np.float32)
+    nodes = rng.integers(-1, n, size=(s, c, e)).astype(np.int32)
+    scores[nodes < 0] = -np.inf
+    tag_words = rng.integers(-2 ** 31, 2 ** 31, size=(s, n, 2)).astype(
+        np.int32) & np.int32(0x0F0F)
+    fw = np.array([[[1, 0], [0, 0], [0, 256], [3, 3]]] * s, np.int32)
+    r_s, r_i = ref_apply_filter(jnp.asarray(scores), jnp.asarray(nodes),
+                                jnp.asarray(tag_words), jnp.asarray(fw))
+    t_s, t_i = _apply_filter(torch.as_tensor(scores), torch.as_tensor(nodes),
+                             torch.as_tensor(tag_words), torch.as_tensor(fw))
+    np.testing.assert_array_equal(np.asarray(r_i), t_i.numpy())
+    np.testing.assert_array_equal(np.asarray(r_s), t_s.numpy())
+
+
+@pytest.mark.parametrize("b,m,k,alive", ((6, 40, 10, False),
+                                         (5, 24, 8, True),
+                                         (4, 6, 9, False)))
+def test_merge_topk_matches_reference(b, m, k, alive):
+    rng = np.random.default_rng(m)
+    scores = rng.normal(size=(b, m)).astype(np.float32)
+    ids = rng.integers(-1, m // 3, size=(b, m)).astype(np.int32)
+    scores[ids < 0] = -np.inf
+    mask = rng.random(size=(b, m)) > 0.3 if alive else None
+    t_s, t_i = merge_topk(torch.as_tensor(scores), torch.as_tensor(ids), k=k,
+                          alive=None if mask is None else torch.as_tensor(mask))
+    n_s, n_i = ref_merge_np(scores, ids, k=k, alive=mask)
+    np.testing.assert_array_equal(t_i.numpy(), n_i)
+    np.testing.assert_array_equal(t_s.numpy(), n_s)
+    p_s, p_i = merge_topk_np(scores, ids, k=k, alive=mask)
+    np.testing.assert_array_equal(p_i, n_i)
+    if k <= m:
+        r_s, r_i = ref_merge(jnp.asarray(scores), jnp.asarray(ids), k=k,
+                             alive=None if mask is None else jnp.asarray(mask))
+        np.testing.assert_array_equal(t_i.numpy(), np.asarray(r_i))
+        np.testing.assert_allclose(t_s.numpy(), np.asarray(r_s), rtol=1e-5,
+                                   atol=1e-5)
+    real = t_i.numpy()
+    for row in real:
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == len(live)
+
+
+@pytest.mark.parametrize("metric,k", (("l2", 1), ("ip", 5), ("angular", 4),
+                                      ("l2", 16)))
+def test_topk_similarity_matches_reference(metric, k):
+    rng = np.random.default_rng(k)
+    q = rng.normal(size=(20, 12)).astype(np.float32)
+    x = rng.normal(size=(200, 12)).astype(np.float32)
+    t_s, t_i = topk_similarity(torch.as_tensor(q), torch.as_tensor(x), k=k,
+                               metric=metric)
+    r_s, r_i = ref_topk(jnp.asarray(q), jnp.asarray(x), k=k, metric=metric)
+    np.testing.assert_array_equal(t_i.numpy(), np.asarray(r_i))
+    np.testing.assert_allclose(t_s.numpy(), np.asarray(r_s), **_tol(metric))
+    if metric != "angular":   # the Pallas kernel places the eps elsewhere
+        p_s, p_i = topk_similarity_pallas(
+            jnp.asarray(q), jnp.asarray(x), k=k, metric=metric, block_n=64,
+            interpret=True)
+        np.testing.assert_array_equal(t_i.numpy(), np.asarray(p_i))
+        np.testing.assert_allclose(t_s.numpy(), np.asarray(p_s),
+                                   **_tol(metric))
+
+
+@pytest.mark.parametrize("spherical", (False, True))
+def test_kmeans_matches_reference_from_same_start(spherical):
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(8, 6))[rng.integers(0, 8, size=300)]
+         + 0.2 * rng.normal(size=(300, 6))).astype(np.float32)
+    init = x[rng.choice(300, size=10, replace=False)]
+    xs = x / (np.linalg.norm(x, axis=1, keepdims=True) + 1e-12) \
+        if spherical else x
+    i0 = init / (np.linalg.norm(init, axis=1, keepdims=True) + 1e-12) \
+        if spherical else init
+    r_c, r_n = RK._kmeans_jit(jnp.asarray(xs), jnp.asarray(i0), m=10,
+                              iters=5, spherical=spherical)
+    t_c, t_n = TK.kmeans(x, 10, iters=5, spherical=spherical,
+                         init_centers=init, device="cpu")
+    np.testing.assert_allclose(t_c, np.asarray(r_c), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(t_n, np.asarray(r_n))
+
+
+def test_kmeans_draws_distinct_starting_rows():
+    x = np.random.default_rng(2).normal(size=(50, 4)).astype(np.float32)
+    c, n = TK.kmeans(x, 7, iters=0, seed=3, device="cpu")
+    assert len({tuple(r) for r in c.tolist()}) == 7
+    assert all(any(np.array_equal(r, y) for y in x) for r in c)
+    c2, _ = TK.kmeans(x, 60, iters=0, seed=3, device="cpu")
+    assert c2.shape == (60, 4)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_similarity_and_quant_scores_match_reference(metric):
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(5, 9)).astype(np.float32)
+    x = rng.normal(size=(30, 9)).astype(np.float32)
+    np.testing.assert_allclose(
+        TM.similarity_matrix(torch.as_tensor(q), torch.as_tensor(x),
+                             metric).numpy(),
+        np.asarray(RM.similarity_matrix(jnp.asarray(q), jnp.asarray(x),
+                                        metric)), **_tol(metric))
+    np.testing.assert_array_equal(TM.similarity_matrix_np(q, x, metric),
+                                  RM.similarity_matrix_np(q, x, metric))
+    p = QuantParams.from_data(x)
+    codes = p.quantize(x)
+    np.testing.assert_allclose(
+        quant_scores(torch.as_tensor(q), torch.as_tensor(codes),
+                     torch.as_tensor(p.scale), torch.as_tensor(p.zero),
+                     metric=metric).numpy(),
+        np.asarray(quant_scores_ref(jnp.asarray(q), jnp.asarray(codes),
+                                    jnp.asarray(p.scale),
+                                    jnp.asarray(p.zero), metric=metric)),
+        **_tol(metric))
+
+
+def test_wrappers_take_only_cuda_tensors():
+    """On CPU tensors the dispatch runs the plain versions and no kernel
+    is counted; the kernel wrappers themselves refuse CPU tensors."""
+    before = launch_counts()
+    case = _float_case(1, 10, 4, 2, 3, seed=0)
+    t = [torch.as_tensor(a) for a in case[:4]]
+    beam_search(*t, metric="l2", ef=4, max_iters=10)
+    merge_topk(torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.int32), k=2)
+    topk_similarity(torch.zeros(2, 4), torch.zeros(5, 4), k=1)
+    assert launch_counts() == before
+    with pytest.raises(ValueError):
+        beam_search_cuda(*t, metric="l2", ef=4, max_iters=10)
+    with pytest.raises(ValueError):
+        merge_topk_cuda(torch.zeros(2, 4),
+                        torch.zeros(2, 4, dtype=torch.int32), k=2)
+    with pytest.raises(ValueError):
+        topk_similarity_cuda(torch.zeros(2, 4), torch.zeros(5, 4), k=1)
