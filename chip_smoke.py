@@ -1,13 +1,14 @@
-"""Drive the PyTorch/CUDA port of the Pyramid index on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the Pyramid index, and kNN-LM serving
+over it, on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n 100000]
+    python3 chip_smoke.py [--n 50000]
 
 Phases, each raising on failure (the script then exits non-zero):
 
   1. environment: the card's name and power limit, torch and CUDA
      versions, and the kernels' build from the sources in ``src/``
-     (``nvcc`` for each CUDA source; Triton kernels compile at first
-     launch);
+     (one ``nvcc`` process for each CUDA source, all started together;
+     Triton kernels compile at first launch);
   2. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, with their times from CUDA events, their bounds
      and, where one exists, a PyTorch library call's time;
@@ -19,7 +20,16 @@ Phases, each raising on failure (the script then exits non-zero):
      filtered batch, each answer checked (well formed, exact scores of
      the rows returned, only alive rows under the filter), with recall@10
      against brute force, QPS, access rate, peak device memory and every
-     kernel's launch count.
+     kernel's launch count;
+  5. kNN-LM serving of qwen3-1.7b at full width (bf16, synthetic weights
+     from a seeded generator): first a float32 check that greedy decode
+     from the prefill cache matches the full forward step by step; then
+     the serving path: a datastore of hidden states over a seeded corpus
+     (``build_datastore``), ``ContinuousBatcher`` over 16 requests in 8
+     slots, and a kNN-LM step (``hidden_states`` -> ``knn_probs`` ->
+     ``interpolate``) whose kNN argmax must hit the corpus's next token,
+     with prefill and decode-step times, tokens/s, peak device memory and
+     launches per kernel (``flash_decode`` once per layer and step).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -30,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -43,12 +54,16 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+L2_BYTES = 50e6
 
 # kernel vs plain: share of equal ids, and score tolerance on equal ids
 # (the kernel sums each dot product in another order than cuBLAS)
 IDS_EQUAL_MIN = 0.999
 N_QUERIES = 1024
 RTOL, ATOL = 1e-5, 1e-4
+# flash-decode vs its plain version: both read the same cache values and
+# sum in float32, in another order
+DECODE_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -103,12 +118,16 @@ def environment() -> dict:
         f"device {torch.cuda.get_device_name(0)}")
     from repro_torch.kernels import cuda_lib
     t0 = time.perf_counter()
-    for name in cuda_lib.sources():
-        cuda_lib.load(name)
-        usage = [ln.strip() for ln in cuda_lib.build_log(name).splitlines()
-                 if "Used" in ln or "spill" in ln]
-        log(f"nvcc {name}.cu: " + " | ".join(usage))
+    cuda_lib.load_all()
     build_s = time.perf_counter() - t0
+    for name in cuda_lib.sources():
+        text = cuda_lib.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log(f"nvcc {name}.cu: {len(regs)} kernels, at most "
+            f"{max(regs, default=0)} registers, {sum(spills)} bytes of "
+            f"spill stores")
     log(f"kernel build (nvcc): {build_s:.2f} s")
     return {"nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "nvcc_build_s": build_s}
@@ -231,10 +250,99 @@ def check_topk(dev, b: int, n: int, d: int, k: int, metric: str,
     return out
 
 
+def device_ms_of(fn, reps: int, name: str) -> float:
+    """Device time per call of the kernels whose name holds ``name``,
+    from ``torch.profiler`` over ``reps`` calls: the card's own time,
+    without the host's enqueue time that CUDA events over back-to-back
+    launches include when a launch is shorter than its enqueue."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / 1e3 / reps
+
+
+def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
+                 kvh: int = 8, hd: int = 128, dtype: str = "bfloat16",
+                 full: bool = False, seed: int = 3) -> dict:
+    """Flash-decode against its plain version: q [B, H, hd] f32, a cache
+    [B, S, KV, hd] in ``dtype``, random ``pos`` (or S - 1 with ``full``).
+    Launches rotate over enough copies of the cache that each one reads
+    it from device memory, not from the 50 MB L2, as a layer of a decode
+    step does."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      flash_decode_cuda)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, hd, device=dev, generator=g)
+    k = torch.randn(b, s, kvh, hd, device=dev, generator=g).to(dt)
+    v = torch.randn(b, s, kvh, hd, device=dev, generator=g).to(dt)
+    if full:
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    else:
+        pos = torch.randint(0, s, (b,), device=dev, generator=g,
+                            dtype=torch.int32)
+    out = flash_decode_cuda(q, k, v, pos)
+    ref = decode_attention_ref(q, k, v, pos)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, rtol=DECODE_TOL, atol=DECODE_TOL):
+        raise AssertionError(f"flash_decode B={b} S={s} {dtype}: kernel "
+                             f"disagrees with its plain version (max abs "
+                             f"err {err:.3g})")
+    copies = max(1, -(-int(4 * L2_BYTES) // (2 * k.nbytes)))
+    caches = [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)]
+    mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())
+    mask = mask[:, None, None, :]
+    qs = q.to(dt)[:, :, None, :]
+
+    def rotate(fn):
+        it = itertools.cycle(caches)
+        return lambda: fn(*next(it))
+
+    launch = rotate(lambda kk, vv: flash_decode_cuda(q, kk, vv, pos))
+    ms = cuda_ms(launch, 100)
+    kernel_ms = device_ms_of(launch, 20, "flash_decode")
+    plain_ms = cuda_ms(rotate(
+        lambda kk, vv: decode_attention_ref(q, kk, vv, pos)), 5)
+    library_ms = cuda_ms(rotate(
+        lambda kk, vv: F.scaled_dot_product_attention(
+            qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)), 100)
+    # the least the card must move: the valid K and V rows (0..pos[b]),
+    # q and pos in, the float32 output out; the operations are q.k and
+    # p.v for every head and valid row
+    rows = int((pos.long() + 1).sum())
+    nbytes = (2 * rows * kvh * hd * k.element_size() + b * h * hd * 4 * 2
+              + b * 4)
+    ops = 4 * rows * h * hd
+    del caches
+    torch.cuda.empty_cache()
+    return {"shape": f"B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} "
+                     f"pos={'S-1' if full else 'random'}",
+            "valid_rows": rows, "max_abs_err": err, "ms": ms,
+            "kernel_device_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": nbytes, "ops": ops, "cache_copies": copies,
+            **bound(nbytes, ops)}
+
+
 def kernels_vs_plain(dev) -> dict:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = {"beam_search": [], "merge_topk": [], "topk_distance": []}
+    res = {"beam_search": [], "merge_topk": [], "topk_distance": [],
+           "decode_attention": []}
     # the shard walk's shape (ef=100), then the filtered shard walk's
     # (ef = 100 x the inflation cap 8, n near the main path's largest
     # shard) and the routing walk's over the meta-HNSW (1,000 centres)
@@ -263,6 +371,17 @@ def kernels_vs_plain(dev) -> dict:
         log(f"topk_distance k={k} {metric}: ids equal {r['ids_equal']:.5f} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms")
+    # a full-width qwen3-1.7b decode step's attention (8 slots, a 1,024-row
+    # cache; bf16 as served, f32 as checked), then a long cache
+    for kw in (dict(), dict(dtype="float32"),
+               dict(s=32_768, full=True)):
+        r = check_decode(dev, **kw)
+        res["decode_attention"].append(r)
+        log(f"decode_attention {r['shape']}: max err {r['max_abs_err']:.3g}"
+            f" kernel {r['ms']:.4f} ms (device {r['kernel_device_ms']:.4f} "
+            f"ms) plain {r['plain_ms']:.3f} ms library"
+            f" {r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
     return res
 
 
@@ -375,14 +494,16 @@ def device_breakdown(fn, batch_s: float) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    per_kernel = sorted(
-        ((e.key, e.self_device_time_total) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda kv: -kv[1])
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    per_kernel = sorted(((e.key, e.self_device_time_total) for e in events),
+                        key=lambda kv: -kv[1])
     device_us = sum(t for _, t in per_kernel)
     if device_us == 0:
         log("profiler saw no device time")
     return {"device_ms": device_us / 1e3,
+            "kernels_launched": sum(e.count for e in events),
             "busy_share": device_us / 1e6 / batch_s,
             "top_kernels_ms": {k[:80]: t / 1e3 for k, t in per_kernel[:8]}}
 
@@ -458,7 +579,7 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"main path launches {res['launches']} peak device memory "
         f"{res['peak_device_bytes'] / 2 ** 30:.2f} GiB")
-    if any(v <= 0 for v in res["launches"].values()):
+    if any(res["launches"][name] <= 0 for name in PYRAMID_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{res['launches']}")
     if res["float32"]["recall@10"] < 0.90:
@@ -468,6 +589,255 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: kNN-LM serving of qwen3-1.7b at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen3-1.7b"
+# the reference launcher's datastore index (src/repro/launch/serve.py:106),
+# unchanged for 8,192 keys at d = 2048
+DATASTORE_PYR = dict(metric="l2", num_shards=4, meta_size=32,
+                     sample_size=400, branching_factor=2, max_degree=12,
+                     max_degree_upper=6, ef_construction=40, ef_search=60)
+# the float32 check: a batch of prompts, then greedy decode steps
+LM_CHECK = dict(batch=4, prompt_len=64, steps=32)
+# the serving cell: a seeded corpus of 16 x 513 tokens (8,192 datastore
+# keys), 16 requests of 64 to 256 prompt tokens (every other one a corpus
+# prefix) and 64 new tokens each, in 8 slots of a 1,024-row cache
+LM_CELL = dict(corpus_seqs=16, corpus_len=513, requests=16, slots=8,
+               max_seq=1024, max_new=64, knn_k=8, seed=11)
+LM_LOGITS_ATOL = 1e-3
+KNN_HIT_MIN = 0.9
+
+
+def synced(fn):
+    """(result, seconds) of ``fn()`` on the host clock, the device synced
+    before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lm_float32_check(dev) -> dict:
+    """Teacher-forced: prefill, then greedy decode through ``decode_step``
+    from the prefill cache; each step's logits must equal the full
+    forward's at that position over the sequence decoded so far, within
+    LM_LOGITS_ATOL, and the greedy tokens must be equal. Float32 weights
+    at the full width (about 8 GB), so that both sides compute in the
+    same precision."""
+    import dataclasses
+
+    import torch
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models.transformer import (forward, grow_cache,
+                                                init_params)
+    from repro_torch.serving.decode import decode_step, prefill_step
+    batch, prompt_len, steps = (LM_CHECK[k] for k in
+                                ("batch", "prompt_len", "steps"))
+    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, prompt, cfg=cfg)
+    cache = grow_cache(cache, prompt_len + steps)
+    toks = [torch.argmax(logits[:, -1].float(), dim=-1)]
+    step_logits = []
+    for i in range(steps):
+        pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
+                         device=dev)
+        nxt, lg, cache = decode_step(params, cache, toks[-1][:, None], pos,
+                                     cfg=cfg)
+        step_logits.append(lg)
+        toks.append(nxt.long())
+    seq = torch.cat([prompt, torch.stack(toks[:steps], dim=1)], dim=1)
+    full, _, _ = forward(params, cfg, seq)
+    full = full.float()
+    got = torch.stack(step_logits, dim=1)
+    want = full[:, prompt_len:]
+    err = float((got - want).abs().max())
+    prefill_err = float((logits[:, -1] - full[:, prompt_len - 1]).abs().max())
+    greedy_equal = bool(torch.equal(want.argmax(-1),
+                                    torch.stack(toks[1:], dim=1)))
+    torch.cuda.synchronize()
+    res = {"batch": batch, "prompt_len": prompt_len, "steps": steps,
+           "max_abs_err": err, "prefill_max_abs_err": prefill_err,
+           "greedy_equal": greedy_equal,
+           "logit_scale": float(want.abs().max()),
+           "seconds": time.perf_counter() - t0}
+    log(f"LM float32 check: decode vs forward max abs err {err:.3g} "
+        f"(prefill {prefill_err:.3g}, |logits| <= {res['logit_scale']:.2f})"
+        f", greedy tokens equal {greedy_equal}")
+    del params, cache, full, logits
+    torch.cuda.empty_cache()
+    if not (err <= LM_LOGITS_ATOL and prefill_err <= LM_LOGITS_ATOL
+            and greedy_equal):
+        raise AssertionError(f"LM float32 check failed: {res}")
+    return res
+
+
+def lm_path(dev) -> dict:
+    """The LM main path at full width in bf16 (LM_CELL): datastore build,
+    continuous batching, and a kNN-LM step for prompts that are corpus
+    prefixes."""
+    import torch
+    from repro_torch.common.config import PyramidConfig
+    from repro_torch.common.registry import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.decode_attention import flash_decode_cuda
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    from repro_torch.serving.decode import prefill_step
+    from repro_torch.serving.retrieval import (build_datastore,
+                                               hidden_states, interpolate,
+                                               knn_probs)
+    cfg = get_arch(LM_ARCH)
+    corpus_seqs, corpus_len, n_requests, slots, max_seq, max_new, knn_k = (
+        LM_CELL[k] for k in ("corpus_seqs", "corpus_len", "requests",
+                             "slots", "max_seq", "max_new", "knn_k"))
+    rng = np.random.default_rng(LM_CELL["seed"])
+    corpus = rng.integers(0, cfg.vocab_size, (corpus_seqs, corpus_len))
+    lengths = rng.integers(64, 257, n_requests)
+    # even requests are prefixes of corpus rows, odd ones random tokens
+    prompts = [corpus[i // 2 % corpus_seqs, :n] if i % 2 == 0 else
+               rng.integers(0, cfg.vocab_size, n)
+               for i, n in enumerate(lengths)]
+    res = {"arch": LM_ARCH, "dtype": cfg.dtype, "cell": LM_CELL,
+           "datastore_config": DATASTORE_PYR}
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    params, res["init_s"] = synced(lambda: init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    res["params"] = sum(t.numel() for t in params["blocks"]["attention"]
+                        .values()) + sum(t.numel() for k, t in params.items()
+                                         if k != "blocks")
+    res["param_bytes"] = sum(t.nbytes for t in params["blocks"]["attention"]
+                             .values()) + sum(
+        t.nbytes for k, t in params.items() if k != "blocks")
+    # a decode step reads every weight but the embedding table once
+    res["decode_step_bound_ms"] = 1e3 * (
+        res["param_bytes"] - params["embedding"].nbytes) / HBM_BYTES_PER_S
+    log(f"{LM_ARCH}: {res['params']:,} parameters ({cfg.dtype}, "
+        f"{res['param_bytes'] / 1e9:.2f} GB) initialised in "
+        f"{res['init_s']:.2f} s")
+
+    ds, res["datastore_build_s"] = synced(lambda: build_datastore(
+        params, cfg, [corpus], PyramidConfig(**DATASTORE_PYR), device=dev))
+    res["datastore_entries"] = int(ds.values.shape[0])
+    res["datastore_build_stats"] = {k: ds.index.build_stats.get(k) for k in (
+        "plan_timings", "subgraphs_wall_s", "sub_sizes")}
+    log(f"datastore: {res['datastore_entries']} entries (d={cfg.d_model}) "
+        f"built in {res['datastore_build_s']:.1f} s "
+        f"{res['datastore_build_stats']}")
+
+    one = torch.as_tensor(prompts[0][None], device=dev)
+    prefill_step(params, one, cfg=cfg)                       # warm-up
+    reps = [synced(lambda: prefill_step(params, one, cfg=cfg))[1]
+            for _ in range(3)]
+    res["prefill_ms"] = 1e3 * float(np.mean(reps))
+    res["prefill_tokens"] = int(one.shape[1])
+
+    batcher = ContinuousBatcher(params, cfg, num_slots=slots,
+                                max_seq=max_seq, device=dev)
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(i, p, max_new_tokens=max_new))
+    launches0 = flash_decode_cuda.launches
+    decode_s, admit_s, steps, profiled = [], [], 0, None
+    t_serve, profiled_s = time.perf_counter(), 0.0
+    while batcher.pending or any(a is not None for a in batcher.active):
+        admitting = bool(batcher.pending) and None in batcher.active
+        if not admitting and profiled is None and len(decode_s) >= 8:
+            # one decode step under the profiler, left out of the times
+            profiled, profiled_s = synced(lambda: device_breakdown(
+                batcher.step, float(np.median(decode_s))))
+            steps += 1
+            continue
+        n, dt = synced(batcher.step)
+        if n:
+            steps += 1
+            (admit_s if admitting else decode_s).append(dt)
+    serve_s = time.perf_counter() - t_serve - profiled_s
+    decode_launches = flash_decode_cuda.launches - launches0
+    tokens = sum(len(c.tokens) for c in batcher.done)
+    res.update({
+        "prompt_lengths": lengths.tolist(),
+        "completed": len(batcher.done), "generated_tokens": tokens,
+        "decode_steps": steps, "serve_s": serve_s,
+        "tokens_per_s": tokens / serve_s,
+        "decode_step_ms_median": 1e3 * float(np.median(decode_s)),
+        "decode_step_ms_mean": 1e3 * float(np.mean(decode_s)),
+        "admit_step_ms_mean": 1e3 * float(np.mean(admit_s)),
+        "flash_decode_launches_serving": decode_launches,
+        "flash_decode_launches_per_step": decode_launches / max(steps, 1),
+        "decode_step_device": profiled})
+    log(f"serving: {len(batcher.done)}/{n_requests} requests, {tokens} "
+        f"tokens in {serve_s:.2f} s ({res['tokens_per_s']:.1f} tokens/s), "
+        f"prefill {res['prefill_ms']:.2f} ms ({res['prefill_tokens']} "
+        f"tokens), decode step {res['decode_step_ms_median']:.2f} ms "
+        f"(median of {len(decode_s)}; weights bound "
+        f"{res['decode_step_bound_ms']:.3f} ms), flash_decode launches per step "
+        f"{res['flash_decode_launches_per_step']:.2f}, decode step device "
+        f"{profiled}")
+    if len(batcher.done) != n_requests or any(
+            len(c.tokens) != max_new for c in batcher.done):
+        raise AssertionError("serving: a request did not complete")
+    if decode_launches != cfg.num_layers * steps:
+        raise AssertionError(f"flash_decode launched {decode_launches} "
+                             f"times in {steps} decode steps")
+
+    # kNN-LM step: the hidden state at a corpus prefix's last position is
+    # a stored key, so the nearest neighbour's value is the next token
+    prefix = [(i // 2 % corpus_seqs, int(n)) for i, n in enumerate(lengths)
+              if i % 2 == 0]
+    hidden = torch.cat([hidden_states(params, cfg, torch.as_tensor(
+        corpus[j, :n][None], device=dev))[:, -1] for j, n in prefix])
+    lm_logits = (hidden @ params["lm_head"]).float().cpu().numpy()
+    queries = hidden.float().cpu().numpy()
+    gold = np.array([corpus[j, n] for j, n in prefix])
+    knn_p, lookup_s = synced(lambda: knn_probs(
+        ds, queries, k=knn_k, vocab_size=cfg.vocab_size))
+    lookups = [synced(lambda: knn_probs(
+        ds, queries, k=knn_k, vocab_size=cfg.vocab_size))[1]
+        for _ in range(3)]
+    mixed = interpolate(lm_logits, knn_p, lam=0.3)
+    hit = float(np.mean(knn_p.argmax(-1) == gold))
+    res.update({"knn_queries": len(prefix), "knn_k": knn_k,
+                "knn_hit_rate": hit,
+                "interpolated_hit_rate": float(np.mean(
+                    mixed.argmax(-1) == gold)),
+                "lm_hit_rate": float(np.mean(lm_logits.argmax(-1) == gold)),
+                "lookup_ms_first": 1e3 * lookup_s,
+                "lookup_ms": 1e3 * float(np.mean(lookups))})
+    res["launches"] = launch_counts()
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"kNN-LM: hit rate {hit:.4f} over {len(prefix)} corpus prefixes "
+        f"(interpolated {res['interpolated_hit_rate']:.4f}, LM alone "
+        f"{res['lm_hit_rate']:.4f}), lookup {res['lookup_ms']:.2f} ms for "
+        f"{len(prefix)} queries; launches {res['launches']}; peak device "
+        f"memory {res['peak_device_bytes'] / 2 ** 30:.2f} GiB")
+    if mixed.shape != (len(prefix), cfg.vocab_size) or \
+            not np.isfinite(mixed).all():
+        raise AssertionError("kNN-LM: interpolated log-probs malformed")
+    if hit < KNN_HIT_MIN:
+        raise AssertionError(f"kNN-LM hit rate {hit:.4f} below "
+                             f"{KNN_HIT_MIN}")
+    if any(v <= 0 for v in res["launches"].values()):
+        raise AssertionError(f"a kernel of the LM path never launched: "
+                             f"{res['launches']}")
+    del params, batcher, ds
+    torch.cuda.empty_cache()
+    return res
+
+
+# the kernels of the index build and Alg. 4 search (phase 4); the LM path
+# (phase 5) runs these and decode_attention
+PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
+
 KERNELS = {
     "beam_search": ("cuda", "src/repro_torch/csrc/beam_search.cu",
                     "src/repro/kernels/beam_search/kernel.py:188"),
@@ -476,13 +846,15 @@ KERNELS = {
     "topk_distance": ("triton",
                       "src/repro_torch/kernels/topk_distance/ops.py",
                       "src/repro/kernels/topk_distance/kernel.py:99"),
+    "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:76"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=100_000,
-                    help="dataset rows of the main path")
+    ap.add_argument("--n", type=int, default=50_000,
+                    help="dataset rows of the Pyramid path (phase 4)")
     args = ap.parse_args()
 
     import torch
@@ -496,6 +868,8 @@ def main() -> int:
     result["kernels"] = kernels_vs_plain(dev)
     result["small_index"] = small_index_agreement()
     result["main_path"] = main_path(args.n, N_QUERIES, os.cpu_count() or 1)
+    result["lm_float32_check"] = lm_float32_check(dev)
+    result["lm_path"] = lm_path(dev)
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -505,7 +879,8 @@ def main() -> int:
         line.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "launches": result["main_path"]["launches"][name],
+            "launches": result["main_path"]["launches"][name]
+            + result["lm_path"]["launches"][name],
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -1,4 +1,7 @@
-from repro_torch.common.config import PyramidConfig
+from repro_torch.common.config import (ArchConfig, AttentionKind, BlockKind,
+                                       MoEConfig, PyramidConfig, RoPEKind,
+                                       SSMConfig)
 from repro_torch.common.device import resolve_device
 
-__all__ = ["PyramidConfig", "resolve_device"]
+__all__ = ["ArchConfig", "AttentionKind", "BlockKind", "MoEConfig",
+           "PyramidConfig", "RoPEKind", "SSMConfig", "resolve_device"]

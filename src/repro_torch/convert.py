@@ -1,21 +1,25 @@
-"""Carry a reference index's state into the port.
+"""Carry a reference index's state, or a reference model's parameters,
+into the port.
 
 A built Pyramid index is the state this system serves from, in the role
 weights play for a model. :func:`index_from_arrays` takes it as plain
 arrays and dicts -- the config fields, the meta ``HNSWGraph`` fields,
 ``part_of_center``, the sub-graphs' fields, and the int8 grid's manifest
 dict when there is one -- and returns the port's ``PyramidIndex`` on a
-device. It imports nothing of the reference package: a caller extracts
-the arrays (for example with ``dataclasses.asdict`` on each graph) and
-passes them in.
+device. :func:`lm_params_from_reference` does the same for the language
+model's parameter tree. Neither imports anything of the reference
+package: a caller extracts the arrays (for example with
+``dataclasses.asdict`` on each graph, or ``jax.tree.map(np.asarray,
+params)``) and passes them in.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.common.config import PyramidConfig
+from repro_torch.common.config import ArchConfig, PyramidConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.core.hnsw import HNSWGraph
 from repro_torch.core.meta_index import PyramidIndex
@@ -66,3 +70,47 @@ def index_from_arrays(config: Mapping, meta: Mapping,
     if quant is not None:
         index.attach_quant_params(QuantParams.from_manifest(quant))
     return index
+
+
+LM_TOP_KEYS = ("embedding", "final_norm", "lm_head")
+LM_LAYER_KEYS = ("norm_attn", "norm_mlp", "w_q", "w_k", "w_v", "w_o",
+                 "q_norm", "k_norm", "w_gate", "w_in", "w_out")
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A tensor from a numpy array, bfloat16 (``ml_dtypes``) included."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16))).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_reference(params: Mapping, cfg: ArchConfig,
+                             device: DeviceLike = "cuda") -> dict:
+    """The port's parameters of ``cfg`` from the reference's parameter
+    tree as numpy arrays: ``embedding``, ``final_norm``, ``lm_head`` (and
+    ``frontend_proj``) at the top, and the attention group's weights
+    under ``blocks/attention`` with their leading layer axis. The other
+    groups are not ported yet."""
+    from repro_torch.models.transformer import _check_ported
+    dev = resolve_device(device)
+    _check_ported(cfg)
+    extra = set(params.get("blocks", {})) - {"attention"}
+    if extra:
+        raise NotImplementedError(f"parameter groups {sorted(extra)} are not "
+                                  f"ported yet")
+    unknown = set(params) - set(LM_TOP_KEYS) - {"blocks"}
+    if unknown:
+        raise NotImplementedError(f"parameters {sorted(unknown)} are not "
+                                  f"ported yet")
+    out = {key: _tensor(params[key], dev) for key in LM_TOP_KEYS
+           if key in params}
+    layers = params["blocks"]["attention"]
+    unknown = set(layers) - set(LM_LAYER_KEYS)
+    if unknown:
+        raise NotImplementedError(f"layer parameters {sorted(unknown)} are "
+                                  f"not ported yet")
+    out["blocks"] = {"attention": {key: _tensor(a, dev)
+                                   for key, a in layers.items()}}
+    return out

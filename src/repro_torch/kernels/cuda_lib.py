@@ -58,24 +58,55 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is built: (process,
+    temporary output) or None."""
+    src, lib, log = _paths(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, started) -> ctypes.CDLL:
+    src, lib, log = _paths(name)
+    if started is not None:
+        proc, tmp = started
+        out, _ = proc.communicate()
+        log.write_text(out)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        os.replace(tmp, lib)
+    _libs[name] = ctypes.CDLL(str(lib))
+    return _libs[name]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building it if needed
     (into a temporary file renamed into place, so a concurrent process
     never loads a half-written library)."""
     with _lock:
         if name not in _libs:
-            src, lib, log = _paths(name)
-            if not lib.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)
-                log.write_text(proc.stdout)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {name}.cu:\n{proc.stdout}")
-                os.replace(tmp, lib)
-            _libs[name] = ctypes.CDLL(str(lib))
+            _finish(name, _start(name))
         return _libs[name]
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Build every CUDA source of the package at once, one ``nvcc``
+    process each, and load them."""
+    with _lock:
+        names = [n for n in sources() if n not in _libs]
+        started = {n: _start(n) for n in names}
+        try:
+            for n in names:
+                _finish(n, started.pop(n))
+        finally:
+            for proc_tmp in started.values():
+                if proc_tmp is not None:
+                    proc_tmp[0].kill()
+                    proc_tmp[0].wait()
+        return {n: _libs[n] for n in sources()}

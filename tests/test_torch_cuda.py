@@ -6,7 +6,8 @@ them on a GPU machine with
 Tolerances: ids must be equal in at least 99.9% of positions (the kernel
 sums a dot product in another order than cuBLAS, which can swap two
 candidates whose scores differ in the last bit), and scores of equal ids
-agree to rtol 1e-5, atol 1e-4.
+agree to rtol 1e-5, atol 1e-4. Flash-decode agrees with its plain version
+to rtol/atol 1e-4: both read the same cache values and sum in float32.
 """
 import numpy as np
 import pytest
@@ -18,11 +19,15 @@ from repro_torch.core.meta_index import build_pyramid_index
 from repro_torch.data.synthetic import clustered_vectors, query_set
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.beam_search import beam_search_cuda, beam_search_ref
+from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                  flash_decode_cuda)
 from repro_torch.kernels.merge_topk import merge_topk_cuda, merge_topk_ref
 from repro_torch.kernels.topk_distance import (topk_similarity_cuda,
                                                topk_similarity_ref)
 
 pytestmark = pytest.mark.cuda
+# the kernels of the index build and of Alg. 4 search
+PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
 
 
 @pytest.fixture
@@ -85,10 +90,83 @@ def test_search_on_card_matches_cpu(cuda):
     reset_launch_counts()
     index = build_pyramid_index(x, cfg)
     ids, _, _ = TD.search_single_host(index, q, 10)
-    assert all(v > 0 for v in launch_counts().values())
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in PYRAMID_KERNELS), counts
     cpu = build_pyramid_index(x, cfg, device="cpu")
     ids_cpu, _, _ = TD.search_single_host(cpu, q, 10)
     truth = np.argsort(-(2 * q @ x.T - (x * x).sum(1)), axis=1)[:, :10]
     rec = [np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i, truth)])
            for i in (ids, ids_cpu)]
     assert rec[0] >= 0.9 and abs(rec[0] - rec[1]) <= 0.02
+
+
+# (B, S, H, KV, hd): G = 1, 2, 3 and 8; S not a multiple of any tile; the
+# long one is split over blocks
+DECODE_SHAPES = [(2, 128, 8, 8, 32), (3, 300, 16, 8, 128), (2, 97, 6, 2, 64),
+                 (1, 70, 8, 1, 16), (2, 5000, 16, 8, 128)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("pos_mode", ("full", "start", "random"))
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=str)
+def test_flash_decode_kernel_matches_plain(cuda, shape, pos_mode, dtype):
+    b, s, h, kvh, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q = torch.randn(b, h, hd, device=cuda, generator=g)
+    k = torch.randn(b, s, kvh, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, s, kvh, hd, device=cuda, generator=g).to(dtype)
+    if pos_mode == "full":
+        pos = torch.full((b,), s - 1, dtype=torch.int32, device=cuda)
+    elif pos_mode == "start":
+        pos = torch.zeros(b, dtype=torch.int32, device=cuda)
+    else:
+        pos = torch.randint(0, s, (b,), device=cuda, generator=g,
+                            dtype=torch.int32)
+    before = flash_decode_cuda.launches
+    out = flash_decode_cuda(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert flash_decode_cuda.launches == before + 1
+    torch.testing.assert_close(out, decode_attention_ref(q, k, v, pos),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_flash_decode_refuses_what_it_is_not_built_for(cuda):
+    q = torch.zeros(1, 4, 48, device=cuda)
+    kv = torch.zeros(1, 8, 2, 48, device=cuda)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_decode_cuda(q, kv, kv, pos)
+    q = torch.zeros(1, 18, 32, device=cuda)
+    kv = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="kv heads"):
+        flash_decode_cuda(q, kv, kv, pos)
+
+
+def test_lm_batcher_on_card_matches_cpu(cuda):
+    """The reduced qwen3 config served on the card goes through the
+    flash-decode kernel once per layer and step, and completes the same
+    tokens as on the CPU."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    cfg = get_arch("qwen3-1.7b").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = {"blocks": {"attention": {
+        k: v.to(cuda) for k, v in cpu["blocks"]["attention"].items()}},
+        **{k: v.to(cuda) for k, v in cpu.items() if k != "blocks"}}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 7)]
+    runs, steps = [], 0
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        b = ContinuousBatcher(params, cfg, num_slots=2, max_seq=32,
+                              device=dev)
+        for i, p in enumerate(prompts):
+            b.submit(Request(i, p, max_new_tokens=6))
+        before = flash_decode_cuda.launches
+        while b.pending or any(a is not None for a in b.active):
+            if b.step() and dev != "cpu":
+                steps += 1      # one decode step of every slot
+        runs.append({c.request_id: c.tokens for c in b.done})
+    assert runs[0] == runs[1]
+    assert flash_decode_cuda.launches - before == cfg.num_layers * steps

@@ -12,10 +12,15 @@ import torch
 
 import repro_torch
 from repro_torch.common.config import PyramidConfig
+from repro_torch.common.registry import get_arch
 from repro_torch.convert import index_from_arrays
 from repro_torch.core import distributed as TD
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.core.meta_index import PyramidIndex, build_pyramid_index
+from repro_torch.launch import serve
+from repro_torch.models.transformer import init_params
+from repro_torch.serving.batcher import ContinuousBatcher
+from repro_torch.serving.retrieval import build_datastore
 
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, prefix="repro_torch."))
@@ -23,6 +28,7 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(
 
 def test_every_module_imports_without_jax_or_reference():
     assert "repro_torch.kernels.beam_search.ops" in MODULES
+    assert "repro_torch.launch.serve" in MODULES
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -57,3 +63,14 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     assert index.device.type == "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TD.search_single_host(index, x[:2], 3)
+    lm = get_arch("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(lm)
+    params = init_params(lm, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatcher(params, lm, num_slots=1, max_seq=8)
+    toks = np.zeros((1, 4), np.int64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_datastore(params, lm, [toks], cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--tokens", "2"])

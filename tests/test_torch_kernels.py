@@ -1,12 +1,16 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
 For each module that holds a Hopper kernel (``beam_search``,
-``merge_topk``, ``topk_distance``) the same numpy inputs go through the
+``merge_topk``, ``topk_distance``, ``decode_attention``) the same numpy
+inputs go through the
 reference (its jnp oracle, its numpy twin, or its Pallas kernel in
 interpret mode) and through the port's dispatch, which on CPU tensors
 takes the plain PyTorch version. Ids must be equal; scores agree to
 rtol/atol 1e-5 (l2 to atol 1e-4, for the cancellation in
-``2q.x - |q|^2 - |x|^2``); k-means centres to 1e-4 from the same start.
+``2q.x - |q|^2 - |x|^2``); k-means centres to 1e-4 from the same start;
+decode attention to 1e-5 against the jnp oracle and to 2e-4 against the
+Pallas kernel in interpret mode (its online softmax sums in another
+order, the tolerance of the reference's own kernel test).
 Float inputs are drawn from a normal distribution so that no two scores
 tie; integer-grid cases, whose ties are exact, are held against the
 numpy twin, which breaks ties as the port does (-0.0 == +0.0).
@@ -19,6 +23,9 @@ import torch
 from repro.core import kmeans as RK
 from repro.core import metrics as RM
 from repro.core.quant import QuantParams
+from repro.kernels.decode_attention.kernel import flash_decode_pallas
+from repro.kernels.decode_attention.ref import \
+    decode_attention_ref as ref_decode_attention
 from repro.kernels.beam_search import beam_search_np as ref_beam_np
 from repro.kernels.beam_search import beam_search_ref as ref_beam
 from repro.kernels.beam_search.ops import _apply_filter as ref_apply_filter
@@ -34,6 +41,9 @@ from repro_torch.kernels.beam_search import beam_search, beam_search_cuda
 from repro_torch.kernels.beam_search import beam_search_np
 from repro_torch.kernels.beam_search import ref as TB
 from repro_torch.kernels.beam_search.ops import _apply_filter
+from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                  flash_decode,
+                                                  flash_decode_cuda)
 from repro_torch.kernels.merge_topk import merge_topk, merge_topk_cuda
 from repro_torch.kernels.merge_topk import merge_topk_np
 from repro_torch.kernels.quant_distance import quant_scores
@@ -332,6 +342,9 @@ def test_wrappers_take_only_cuda_tensors():
     beam_search(*t, metric="l2", ef=4, max_iters=10)
     merge_topk(torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.int32), k=2)
     topk_similarity(torch.zeros(2, 4), torch.zeros(5, 4), k=1)
+    kv = torch.zeros(2, 8, 2, 16)
+    pos = torch.zeros(2, dtype=torch.int32)
+    flash_decode(torch.zeros(2, 4, 16), kv, kv, pos)
     assert launch_counts() == before
     with pytest.raises(ValueError):
         beam_search_cuda(*t, metric="l2", ef=4, max_iters=10)
@@ -340,3 +353,54 @@ def test_wrappers_take_only_cuda_tensors():
                         torch.zeros(2, 4, dtype=torch.int32), k=2)
     with pytest.raises(ValueError):
         topk_similarity_cuda(torch.zeros(2, 4), torch.zeros(5, 4), k=1)
+    with pytest.raises(ValueError):
+        flash_decode_cuda(torch.zeros(2, 4, 16), kv, kv, pos)
+
+
+def _decode_case(b, s, h, kvh, hd, pos_mode, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, s, kvh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, s, kvh, hd)).astype(np.float32)
+    if pos_mode == "full":
+        pos = np.full(b, s - 1, np.int32)
+    elif pos_mode == "start":
+        pos = np.zeros(b, np.int32)
+    else:
+        pos = rng.integers(0, s, size=b).astype(np.int32)
+    return q, k, v, pos
+
+
+# the reference kernel test's shapes (B, S, H, KV, hd), G = 2, 2, 1, 3,
+# and two with S not a multiple of the Pallas block
+@pytest.mark.parametrize("shape", [
+    (2, 128, 8, 4, 32), (1, 300, 16, 8, 64), (3, 64, 4, 4, 16),
+    (2, 96, 6, 2, 32), (2, 130, 8, 4, 32), (1, 70, 4, 2, 16)])
+@pytest.mark.parametrize("pos_mode", ["full", "start", "random"])
+def test_decode_attention_matches_reference(shape, pos_mode):
+    case = _decode_case(*shape, pos_mode, seed=sum(shape) + len(pos_mode))
+    ours = decode_attention_ref(*(torch.as_tensor(a) for a in case))
+    assert ours.dtype == torch.float32
+    jcase = [jnp.asarray(a) for a in case]
+    np.testing.assert_allclose(
+        ours.numpy(), np.asarray(ref_decode_attention(*jcase)),
+        rtol=1e-5, atol=1e-5)
+    pallas = flash_decode_pallas(*jcase, block_s=64, interpret=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(pallas),
+                               rtol=2e-4, atol=2e-4)
+    # the dispatch takes the plain version on CPU tensors
+    torch.testing.assert_close(
+        flash_decode(*(torch.as_tensor(a) for a in case)), ours,
+        rtol=0, atol=0)
+
+
+def test_decode_attention_reads_bf16_caches_in_float32():
+    q, k, v, pos = _decode_case(2, 200, 8, 4, 32, "random", seed=5)
+    kb = torch.as_tensor(k).to(torch.bfloat16)
+    vb = torch.as_tensor(v).to(torch.bfloat16)
+    ours = decode_attention_ref(torch.as_tensor(q), kb, vb,
+                                torch.as_tensor(pos))
+    ref = ref_decode_attention(jnp.asarray(q), jnp.asarray(kb.float()),
+                               jnp.asarray(vb.float()), jnp.asarray(pos))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
