@@ -29,7 +29,14 @@ Phases, each raising on failure (the script then exits non-zero):
      slots, and a kNN-LM step (``hidden_states`` -> ``knn_probs`` ->
      ``interpolate``) whose kNN argmax must hit the corpus's next token,
      with prefill and decode-step times, tokens/s, peak device memory and
-     launches per kernel (``flash_decode`` once per layer and step).
+     launches per kernel (``flash_decode`` once per layer and step);
+  6. mamba2-780m serving at full width, the same way (bf16, synthetic
+     weights): a float32 check of the recurrent decode from the prefill
+     state against the full forward, held layer by layer (each layer fed
+     the full forward's own inputs; the end-to-end logits are recorded),
+     a datastore of 4,096 keys, 16 requests in 8 slots, and a kNN-LM
+     step; the SSD kernel must run once per layer in every full forward
+     and never in a decode step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -54,6 +61,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 L2_BYTES = 50e6
 
 # kernel vs plain: share of equal ids, and score tolerance on equal ids
@@ -64,6 +72,13 @@ RTOL, ATOL = 1e-5, 1e-4
 # flash-decode vs its plain version: both read the same cache values and
 # sum in float32, in another order
 DECODE_TOL = 1e-4
+# the SSD scan vs its plain version on float32 copies of the same inputs,
+# as a share of the largest |y| (and of the largest |state|): both sum in
+# float32, in another order, and the decays are exponentials of
+# differences of float32 prefix sums that reach |cum| ~ 10^3 in a chunk
+# (the plain version at chunks of 64 and of 256, the same function,
+# differs by 1e-5 of max |y| at these decay rates on the CPU)
+SSD_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -193,9 +208,9 @@ def check_beam(dev, metric: str, quantized: bool, *, s: int = 16,
     return out
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, flops: float = FP32_FLOPS) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    t_ops = ops / flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -338,11 +353,82 @@ def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
             **bound(nbytes, ops)}
 
 
+def check_ssd(dev, *, b: int = 1, s: int = 513, dtype: str = "bfloat16",
+              h: int = 48, p: int = 64, n: int = 128, chunk: int = 256,
+              reps: int = 20, seed: int = 4) -> dict:
+    """The SSD scan against its plain version (``ssd_chunked`` on float32
+    copies of the same inputs) at mamba2-780m's width: x [B, S, H, P] in
+    ``dtype``, dt = softplus(normal) and a = -linspace(1, 16, H) as the
+    model makes them, B and C the two halves of one [B, S, 2N]
+    projection, read in place. Launches rotate over enough copies of the
+    inputs that each one reads them from device memory, not from the
+    50 MB L2, as a layer of a prefill does."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_ref
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, h, p, device=dev, generator=g).to(dt_)
+    dt = F.softplus(torch.randn(b, s, h, device=dev, generator=g))
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    bc = torch.randn(b, s, 2 * n, device=dev, generator=g).to(dt_)
+    y, st = ssd_cuda(x, dt, a, bc[..., :n], bc[..., n:], chunk=chunk)
+    xf, bcf = x.float(), bc.float()
+
+    def plain():
+        return ssd_ref(xf, dt, a, bcf[..., :n], bcf[..., n:], chunk=chunk)
+    y_r, st_r = plain()
+    torch.cuda.synchronize()
+    err = float((y - y_r).abs().max())
+    err_state = float((st - st_r).abs().max())
+    y_scale, st_scale = float(y_r.abs().max()), float(st_r.abs().max())
+    if not (torch.isfinite(y).all() and torch.isfinite(st).all()
+            and err <= SSD_TOL * y_scale and err_state <= SSD_TOL * st_scale):
+        raise AssertionError(
+            f"ssd B={b} S={s} {dtype}: kernel disagrees with its plain "
+            f"version (max abs err {err:.3g} of |y| <= {y_scale:.3g}, state "
+            f"{err_state:.3g} of {st_scale:.3g}; tolerance {SSD_TOL} of each)")
+    in_bytes = x.nbytes + dt.nbytes + bc.nbytes
+    copies = max(1, -(-int(4 * L2_BYTES) // in_bytes))
+    inputs = [(x, dt, bc)] + [(x.clone(), dt.clone(), bc.clone())
+                              for _ in range(copies - 1)]
+    it = itertools.cycle(inputs)
+
+    def launch():
+        xx, dd, bb = next(it)
+        return ssd_cuda(xx, dd, a, bb[..., :n], bb[..., n:], chunk=chunk)
+    ms = cuda_ms(launch, reps)
+    kernel_ms = device_ms_of(launch, max(3, reps // 2), "ssd_kernel")
+    plain_ms = cuda_ms(plain, 2)
+    # the least the card must move: x, dt, a, B and C read once, y and the
+    # state written once; the least operations of the chunked form: C B^T
+    # once per (b, chunk) over its causal lower triangle (all heads share
+    # it), then per head the triangle's product with x and the two state
+    # terms (C S and B^T x), counted over the rows each chunk holds
+    q = min(chunk, s)
+    rows = [min(q, s - t) for t in range(0, s, q)]
+    ops = sum(b * r * (r + 1) * n + b * h * (r * (r + 1) * p + 4 * r * n * p)
+              for r in rows)
+    nbytes = in_bytes + a.nbytes + y.nbytes + st.nbytes
+    del inputs, it
+    torch.cuda.empty_cache()
+    return {"shape": f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} {dtype}",
+            "max_abs_err": err, "max_abs_err_state": err_state,
+            "y_scale": y_scale, "state_scale": st_scale, "tolerance": SSD_TOL,
+            "ms": ms, "kernel_device_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "input_copies": copies,
+            **bound(nbytes, ops, BF16_FLOPS if dtype == "bfloat16"
+                    else FP32_FLOPS)}
+
+
 def kernels_vs_plain(dev) -> dict:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"beam_search": [], "merge_topk": [], "topk_distance": [],
-           "decode_attention": []}
+           "decode_attention": [], "ssd": []}
     # the shard walk's shape (ef=100), then the filtered shard walk's
     # (ef = 100 x the inflation cap 8, n near the main path's largest
     # shard) and the routing walk's over the meta-HNSW (1,000 centres)
@@ -382,6 +468,17 @@ def kernels_vs_plain(dev) -> dict:
             f"ms) plain {r['plain_ms']:.3f} ms library"
             f" {r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
+    # mamba2-780m's SSD: a corpus row's prefill (three chunks, the last
+    # ragged; bf16 as served, f32 as checked), then a batch of long prompts
+    for kw in (dict(), dict(dtype="float32"),
+               dict(b=4, s=4096, reps=10)):
+        r = check_ssd(dev, **kw)
+        res["ssd"].append(r)
+        log(f"ssd {r['shape']}: max err {r['max_abs_err']:.3g} (|y| <= "
+            f"{r['y_scale']:.3g}; state {r['max_abs_err_state']:.3g} of "
+            f"{r['state_scale']:.3g}) kernel {r['ms']:.4f} ms (device "
+            f"{r['kernel_device_ms']:.4f} ms) plain {r['plain_ms']:.3f} ms "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return res
 
 
@@ -590,22 +687,60 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kNN-LM serving of qwen3-1.7b at full width
+# phases 5 and 6: kNN-LM serving of qwen3-1.7b and of mamba2-780m at full
+# width
 # ---------------------------------------------------------------------------
 
-LM_ARCH = "qwen3-1.7b"
 # the reference launcher's datastore index (src/repro/launch/serve.py:106),
-# unchanged for 8,192 keys at d = 2048
+# unchanged for 8,192 keys at d = 2048 and 4,096 keys at d = 1536
 DATASTORE_PYR = dict(metric="l2", num_shards=4, meta_size=32,
                      sample_size=400, branching_factor=2, max_degree=12,
                      max_degree_upper=6, ef_construction=40, ef_search=60)
-# the float32 check: a batch of prompts, then greedy decode steps
-LM_CHECK = dict(batch=4, prompt_len=64, steps=32)
-# the serving cell: a seeded corpus of 16 x 513 tokens (8,192 datastore
-# keys), 16 requests of 64 to 256 prompt tokens (every other one a corpus
-# prefix) and 64 new tokens each, in 8 slots of a 1,024-row cache
-LM_CELL = dict(corpus_seqs=16, corpus_len=513, requests=16, slots=8,
-               max_seq=1024, max_new=64, knn_k=8, seed=11)
+# the kernels of the index build and Alg. 4 search (phase 4); the LM
+# paths run these in their datastore and lookups
+PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
+# one served model per phase:
+#   check: the float32 check, a batch of prompts then greedy decode steps;
+#   cell: a seeded corpus of corpus_seqs x 513 tokens (its datastore is
+#     built from batches of ds_batch rows), the prefill timed on the first
+#     prompt or on a corpus prefix of prefill_len, `requests` requests whose
+#     prompt lengths are drawn from prompt_lo..prompt_hi (every other one
+#     a corpus prefix of at most prefix_max tokens), max_new new tokens
+#     each, in `slots` slots of a max_seq-row cache;
+#   kernels: the kernels the phase must launch, and those it must not;
+#   step_kernel: launched once per layer in every decode step;
+#   forward_kernel: launched once per layer in every full forward and in
+#     no decode step;
+#   gate: what the float32 check holds to LM_LOGITS_ATOL, "logits" (the
+#     end-to-end logits and greedy tokens) or "layers" (every layer's
+#     outputs, each layer fed the full forward's own inputs; the
+#     end-to-end numbers are recorded). The random 48-layer Mamba2 stack
+#     amplifies float32 rounding from layer to layer: the same SSD kernel
+#     over the prompt and over the whole sequence, two orders of the same
+#     sums, parts in the logits at one position by far more than
+#     LM_LOGITS_ATOL (the check prints this floor as the prefill error).
+#     Layer by layer nothing is amplified, and the prefill state's
+#     hand-off to the recurrent decode is held at every layer.
+LM_SPECS = {
+    "qwen3-1.7b": dict(
+        check=dict(batch=4, prompt_len=64, steps=32),
+        cell=dict(corpus_seqs=16, corpus_len=513, ds_batch=16, requests=16,
+                  prompt_lo=64, prompt_hi=256, prefix_max=512, slots=8,
+                  max_seq=1024, max_new=64, knn_k=8, seed=11,
+                  prefill_len=None),
+        kernels=PYRAMID_KERNELS + ("decode_attention",), absent=("ssd",),
+        step_kernel="decode_attention", forward_kernel=None, gate="logits"),
+    # half of phase 5's corpus (4,096 keys), a cut of scale to keep time
+    # for the script; prompts of two and three chunks of 256
+    "mamba2-780m": dict(
+        check=dict(batch=4, prompt_len=300, steps=32),
+        cell=dict(corpus_seqs=8, corpus_len=513, ds_batch=1, requests=16,
+                  prompt_lo=64, prompt_hi=768, prefix_max=512, slots=8,
+                  max_seq=1024, max_new=64, knn_k=8, seed=12,
+                  prefill_len=512),
+        kernels=PYRAMID_KERNELS + ("ssd",), absent=("decode_attention",),
+        step_kernel=None, forward_kernel="ssd", gate="layers"),
+}
 LM_LOGITS_ATOL = 1e-3
 KNN_HIT_MIN = 0.9
 
@@ -621,27 +756,68 @@ def synced(fn):
     return out, time.perf_counter() - t0
 
 
-def lm_float32_check(dev) -> dict:
+def mamba_layer_check(params, cfg, seq, prompt_len: int) -> dict:
+    """Each Mamba2 layer on its own, fed the full forward's input to that
+    layer: the full sequence (the SSD kernel over all rows), the prompt
+    alone (the kernel, giving the prefill state), then the recurrent
+    decode of the remaining rows from that state, one row at a time.
+    Returns the largest differences from the full sequence's outputs,
+    over all layers, of the prompt's rows and of the decoded rows."""
+    import torch
+    from repro_torch.models.transformer import _mamba_layer_fwd
+    blocks = params["blocks"]["mamba2"]
+    x = params["embedding"][seq]
+    err_prefill = err_decode = scale = 0.0
+    for layer in range(cfg.num_layers):
+        p = {k: w[layer] for k, w in blocks.items()}
+        full, _ = _mamba_layer_fwd(p, cfg, x)
+        pre, st = _mamba_layer_fwd(p, cfg, x[:, :prompt_len])
+        st = {k: v.clone() for k, v in st.items()}
+        dec = []
+        for t in range(prompt_len, seq.shape[1]):
+            out, st = _mamba_layer_fwd(p, cfg, x[:, t:t + 1], st,
+                                       decode=True)
+            dec.append(out)
+        err_prefill = max(err_prefill, float(
+            (pre - full[:, :prompt_len]).abs().max()))
+        err_decode = max(err_decode, float(
+            (torch.cat(dec, dim=1) - full[:, prompt_len:]).abs().max()))
+        scale = max(scale, float(full.abs().max()))
+        x = full
+    return {"layer_prefill_max_abs_err": err_prefill,
+            "layer_decode_max_abs_err": err_decode,
+            "layer_output_scale": scale}
+
+
+def lm_float32_check(dev, arch: str) -> dict:
     """Teacher-forced: prefill, then greedy decode through ``decode_step``
-    from the prefill cache; each step's logits must equal the full
-    forward's at that position over the sequence decoded so far, within
-    LM_LOGITS_ATOL, and the greedy tokens must be equal. Float32 weights
-    at the full width (about 8 GB), so that both sides compute in the
-    same precision."""
+    from the prefill cache; each step's logits are compared with the full
+    forward's at that position over the sequence decoded so far, and the
+    greedy tokens with its argmax. With the spec's gate "logits" these
+    must agree within LM_LOGITS_ATOL and be equal; with "layers"
+    (mamba2) every layer's prompt and decoded outputs must agree with the
+    full sequence's within LM_LOGITS_ATOL (:func:`mamba_layer_check`),
+    and the end-to-end numbers are recorded beside the same-kernel
+    rounding floor (the prefill's last logits against the full
+    forward's). Float32 weights at the full width, so that both sides
+    compute in the same precision."""
     import dataclasses
 
     import torch
     from repro_torch.common.registry import get_arch
+    from repro_torch.kernels import launch_counts
     from repro_torch.models.transformer import (forward, grow_cache,
                                                 init_params)
     from repro_torch.serving.decode import decode_step, prefill_step
-    batch, prompt_len, steps = (LM_CHECK[k] for k in
+    spec = LM_SPECS[arch]
+    batch, prompt_len, steps = (spec["check"][k] for k in
                                 ("batch", "prompt_len", "steps"))
-    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                          device=dev)
     prompt = torch.as_tensor(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+    before = launch_counts()
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, prompt, cfg=cfg)
     cache = grow_cache(cache, prompt_len + steps)
@@ -664,105 +840,148 @@ def lm_float32_check(dev) -> dict:
     greedy_equal = bool(torch.equal(want.argmax(-1),
                                     torch.stack(toks[1:], dim=1)))
     torch.cuda.synchronize()
-    res = {"batch": batch, "prompt_len": prompt_len, "steps": steps,
-           "max_abs_err": err, "prefill_max_abs_err": prefill_err,
-           "greedy_equal": greedy_equal,
+    after = launch_counts()
+    res = {"arch": arch, "batch": batch, "prompt_len": prompt_len,
+           "steps": steps, "max_abs_err": err,
+           "prefill_max_abs_err": prefill_err, "greedy_equal": greedy_equal,
            "logit_scale": float(want.abs().max()),
+           "launches": {k: after[k] - before[k] for k in after},
            "seconds": time.perf_counter() - t0}
-    log(f"LM float32 check: decode vs forward max abs err {err:.3g} "
+    log(f"{arch} float32 check: decode vs forward max abs err {err:.3g} "
         f"(prefill {prefill_err:.3g}, |logits| <= {res['logit_scale']:.2f})"
-        f", greedy tokens equal {greedy_equal}")
+        f", greedy tokens equal {greedy_equal}, launches {res['launches']}")
+    if spec["gate"] == "layers":
+        res["first_token_difference"] = next(
+            (i for i in range(steps) if not torch.equal(
+                want.argmax(-1)[:, i], toks[i + 1])), None)
+        res.update(mamba_layer_check(params, cfg, seq, prompt_len))
+        log(f"{arch} float32 check, layer by layer over {cfg.num_layers} "
+            f"layers: prompt rows max abs err "
+            f"{res['layer_prefill_max_abs_err']:.3g}, decoded rows "
+            f"{res['layer_decode_max_abs_err']:.3g} (|outputs| <= "
+            f"{res['layer_output_scale']:.3g})")
+        ok = (res["layer_prefill_max_abs_err"] <= LM_LOGITS_ATOL
+              and res["layer_decode_max_abs_err"] <= LM_LOGITS_ATOL)
+    else:
+        ok = (err <= LM_LOGITS_ATOL and prefill_err <= LM_LOGITS_ATOL
+              and greedy_equal)
     del params, cache, full, logits
     torch.cuda.empty_cache()
-    if not (err <= LM_LOGITS_ATOL and prefill_err <= LM_LOGITS_ATOL
-            and greedy_equal):
-        raise AssertionError(f"LM float32 check failed: {res}")
+    if not ok:
+        raise AssertionError(f"{arch} float32 check failed: {res}")
+    kern = spec["forward_kernel"]
+    if kern and res["launches"][kern] != 2 * cfg.num_layers:
+        raise AssertionError(f"{kern} launched {res['launches'][kern]} times"
+                             f" in 2 full forwards and {steps} decode steps")
     return res
 
 
-def lm_path(dev) -> dict:
-    """The LM main path at full width in bf16 (LM_CELL): datastore build,
-    continuous batching, and a kNN-LM step for prompts that are corpus
-    prefixes."""
+def lm_path(dev, arch: str) -> dict:
+    """The LM main path of ``arch`` at full width in bf16 (its LM_SPECS
+    cell): datastore build, continuous batching, and a kNN-LM step for
+    prompts that are corpus prefixes. The launch counts are set to 0 at
+    its start and read at its end."""
     import torch
     from repro_torch.common.config import PyramidConfig
     from repro_torch.common.registry import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.decode_attention import flash_decode_cuda
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.batcher import ContinuousBatcher, Request
     from repro_torch.serving.decode import prefill_step
     from repro_torch.serving.retrieval import (build_datastore,
                                                hidden_states, interpolate,
                                                knn_probs)
-    cfg = get_arch(LM_ARCH)
+    spec = LM_SPECS[arch]
+    cell = spec["cell"]
+    cfg = get_arch(arch)
     corpus_seqs, corpus_len, n_requests, slots, max_seq, max_new, knn_k = (
-        LM_CELL[k] for k in ("corpus_seqs", "corpus_len", "requests",
-                             "slots", "max_seq", "max_new", "knn_k"))
-    rng = np.random.default_rng(LM_CELL["seed"])
+        cell[k] for k in ("corpus_seqs", "corpus_len", "requests",
+                          "slots", "max_seq", "max_new", "knn_k"))
+    rng = np.random.default_rng(cell["seed"])
     corpus = rng.integers(0, cfg.vocab_size, (corpus_seqs, corpus_len))
-    lengths = rng.integers(64, 257, n_requests)
+    lengths = rng.integers(cell["prompt_lo"], cell["prompt_hi"] + 1,
+                           n_requests)
     # even requests are prefixes of corpus rows, odd ones random tokens
+    lengths = np.array([min(n, cell["prefix_max"]) if i % 2 == 0 else n
+                        for i, n in enumerate(lengths)])
     prompts = [corpus[i // 2 % corpus_seqs, :n] if i % 2 == 0 else
                rng.integers(0, cfg.vocab_size, n)
                for i, n in enumerate(lengths)]
-    res = {"arch": LM_ARCH, "dtype": cfg.dtype, "cell": LM_CELL,
+    res = {"arch": arch, "dtype": cfg.dtype, "cell": cell,
            "datastore_config": DATASTORE_PYR}
+    forwards = 0        # full forwards (prefills) run on this path
 
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     params, res["init_s"] = synced(lambda: init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
-    res["params"] = sum(t.numel() for t in params["blocks"]["attention"]
-                        .values()) + sum(t.numel() for k, t in params.items()
-                                         if k != "blocks")
-    res["param_bytes"] = sum(t.nbytes for t in params["blocks"]["attention"]
-                             .values()) + sum(
-        t.nbytes for k, t in params.items() if k != "blocks")
-    # a decode step reads every weight but the embedding table once
-    res["decode_step_bound_ms"] = 1e3 * (
-        res["param_bytes"] - params["embedding"].nbytes) / HBM_BYTES_PER_S
-    log(f"{LM_ARCH}: {res['params']:,} parameters ({cfg.dtype}, "
+    leaves = [t for k, t in params.items() if k != "blocks"] + [
+        t for group in params["blocks"].values() for t in group.values()]
+    res["params"] = sum(t.numel() for t in leaves)
+    res["param_bytes"] = sum(t.nbytes for t in leaves)
+    log(f"{arch}: {res['params']:,} parameters ({cfg.dtype}, "
         f"{res['param_bytes'] / 1e9:.2f} GB) initialised in "
         f"{res['init_s']:.2f} s")
 
+    batches = [corpus[i:i + cell["ds_batch"]]
+               for i in range(0, corpus_seqs, cell["ds_batch"])]
     ds, res["datastore_build_s"] = synced(lambda: build_datastore(
-        params, cfg, [corpus], PyramidConfig(**DATASTORE_PYR), device=dev))
+        params, cfg, batches, PyramidConfig(**DATASTORE_PYR), device=dev))
+    forwards += len(batches)
     res["datastore_entries"] = int(ds.values.shape[0])
     res["datastore_build_stats"] = {k: ds.index.build_stats.get(k) for k in (
         "plan_timings", "subgraphs_wall_s", "sub_sizes")}
     log(f"datastore: {res['datastore_entries']} entries (d={cfg.d_model}) "
-        f"built in {res['datastore_build_s']:.1f} s "
-        f"{res['datastore_build_stats']}")
+        f"built in {res['datastore_build_s']:.1f} s from {len(batches)} "
+        f"batches {res['datastore_build_stats']}")
 
-    one = torch.as_tensor(prompts[0][None], device=dev)
+    # prefill of the first prompt, or of a corpus prefix of prefill_len
+    one = torch.as_tensor((prompts[0] if cell["prefill_len"] is None else
+                           corpus[0, :cell["prefill_len"]])[None], device=dev)
     prefill_step(params, one, cfg=cfg)                       # warm-up
     reps = [synced(lambda: prefill_step(params, one, cfg=cfg))[1]
             for _ in range(3)]
+    forwards += 4
     res["prefill_ms"] = 1e3 * float(np.mean(reps))
     res["prefill_tokens"] = int(one.shape[1])
 
     batcher = ContinuousBatcher(params, cfg, num_slots=slots,
                                 max_seq=max_seq, device=dev)
+    # a decode step reads every weight but the embedding table once, and
+    # reads and rewrites the recurrent state (Mamba2's SSM and conv state)
+    state_bytes = sum(t.nbytes for t in batcher.cache.get("mamba2",
+                                                          {}).values())
+    res["decode_step_bound_bytes"] = (res["param_bytes"]
+                                      - params["embedding"].nbytes
+                                      + 2 * state_bytes)
+    res["decode_step_bound_ms"] = 1e3 * res["decode_step_bound_bytes"] \
+        / HBM_BYTES_PER_S
     for i, p in enumerate(prompts):
         batcher.submit(Request(i, p, max_new_tokens=max_new))
-    launches0 = flash_decode_cuda.launches
+    counts0 = launch_counts()
+    fwd_in_decode = 0   # forward-kernel launches in steps that admit none
     decode_s, admit_s, steps, profiled = [], [], 0, None
     t_serve, profiled_s = time.perf_counter(), 0.0
     while batcher.pending or any(a is not None for a in batcher.active):
         admitting = bool(batcher.pending) and None in batcher.active
+        before = launch_counts()
         if not admitting and profiled is None and len(decode_s) >= 8:
             # one decode step under the profiler, left out of the times
             profiled, profiled_s = synced(lambda: device_breakdown(
                 batcher.step, float(np.median(decode_s))))
             steps += 1
-            continue
-        n, dt = synced(batcher.step)
-        if n:
-            steps += 1
-            (admit_s if admitting else decode_s).append(dt)
+        else:
+            n, dt = synced(batcher.step)
+            if n:
+                steps += 1
+                (admit_s if admitting else decode_s).append(dt)
+        if not admitting and spec["forward_kernel"]:
+            fwd_in_decode += (launch_counts()[spec["forward_kernel"]]
+                              - before[spec["forward_kernel"]])
     serve_s = time.perf_counter() - t_serve - profiled_s
-    decode_launches = flash_decode_cuda.launches - launches0
+    forwards += n_requests
+    counts1 = launch_counts()
+    serving_launches = {k: counts1[k] - counts0[k] for k in counts1}
     tokens = sum(len(c.tokens) for c in batcher.done)
     res.update({
         "prompt_lengths": lengths.tolist(),
@@ -772,23 +991,30 @@ def lm_path(dev) -> dict:
         "decode_step_ms_median": 1e3 * float(np.median(decode_s)),
         "decode_step_ms_mean": 1e3 * float(np.mean(decode_s)),
         "admit_step_ms_mean": 1e3 * float(np.mean(admit_s)),
-        "flash_decode_launches_serving": decode_launches,
-        "flash_decode_launches_per_step": decode_launches / max(steps, 1),
+        "recurrent_state_bytes": state_bytes,
+        "launches_serving": serving_launches,
+        "launches_per_step": {k: v / max(steps, 1)
+                              for k, v in serving_launches.items()},
+        "forward_kernel_launches_in_decode_steps": fwd_in_decode,
         "decode_step_device": profiled})
     log(f"serving: {len(batcher.done)}/{n_requests} requests, {tokens} "
         f"tokens in {serve_s:.2f} s ({res['tokens_per_s']:.1f} tokens/s), "
         f"prefill {res['prefill_ms']:.2f} ms ({res['prefill_tokens']} "
         f"tokens), decode step {res['decode_step_ms_median']:.2f} ms "
-        f"(median of {len(decode_s)}; weights bound "
-        f"{res['decode_step_bound_ms']:.3f} ms), flash_decode launches per step "
-        f"{res['flash_decode_launches_per_step']:.2f}, decode step device "
+        f"(median of {len(decode_s)}; bound "
+        f"{res['decode_step_bound_ms']:.3f} ms), launches in serving "
+        f"{serving_launches} over {steps} steps, decode step device "
         f"{profiled}")
     if len(batcher.done) != n_requests or any(
             len(c.tokens) != max_new for c in batcher.done):
         raise AssertionError("serving: a request did not complete")
-    if decode_launches != cfg.num_layers * steps:
-        raise AssertionError(f"flash_decode launched {decode_launches} "
+    kern = spec["step_kernel"]
+    if kern and serving_launches[kern] != cfg.num_layers * steps:
+        raise AssertionError(f"{kern} launched {serving_launches[kern]} "
                              f"times in {steps} decode steps")
+    if spec["forward_kernel"] and fwd_in_decode:
+        raise AssertionError(f"{spec['forward_kernel']} launched "
+                             f"{fwd_in_decode} times in decode steps")
 
     # kNN-LM step: the hidden state at a corpus prefix's last position is
     # a stored key, so the nearest neighbour's value is the next token
@@ -796,6 +1022,7 @@ def lm_path(dev) -> dict:
               if i % 2 == 0]
     hidden = torch.cat([hidden_states(params, cfg, torch.as_tensor(
         corpus[j, :n][None], device=dev))[:, -1] for j, n in prefix])
+    forwards += len(prefix)
     lm_logits = (hidden @ params["lm_head"]).float().cpu().numpy()
     queries = hidden.float().cpu().numpy()
     gold = np.array([corpus[j, n] for j, n in prefix])
@@ -814,29 +1041,34 @@ def lm_path(dev) -> dict:
                 "lookup_ms_first": 1e3 * lookup_s,
                 "lookup_ms": 1e3 * float(np.mean(lookups))})
     res["launches"] = launch_counts()
+    res["full_forwards"] = forwards
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"kNN-LM: hit rate {hit:.4f} over {len(prefix)} corpus prefixes "
         f"(interpolated {res['interpolated_hit_rate']:.4f}, LM alone "
         f"{res['lm_hit_rate']:.4f}), lookup {res['lookup_ms']:.2f} ms for "
-        f"{len(prefix)} queries; launches {res['launches']}; peak device "
-        f"memory {res['peak_device_bytes'] / 2 ** 30:.2f} GiB")
+        f"{len(prefix)} queries; launches {res['launches']} in {forwards} "
+        f"full forwards and {steps} decode steps; peak device memory "
+        f"{res['peak_device_bytes'] / 2 ** 30:.2f} GiB")
     if mixed.shape != (len(prefix), cfg.vocab_size) or \
             not np.isfinite(mixed).all():
         raise AssertionError("kNN-LM: interpolated log-probs malformed")
     if hit < KNN_HIT_MIN:
         raise AssertionError(f"kNN-LM hit rate {hit:.4f} below "
                              f"{KNN_HIT_MIN}")
-    if any(v <= 0 for v in res["launches"].values()):
-        raise AssertionError(f"a kernel of the LM path never launched: "
-                             f"{res['launches']}")
+    if any(res["launches"][k] <= 0 for k in spec["kernels"]) or any(
+            res["launches"][k] != 0 for k in spec["absent"]):
+        raise AssertionError(f"{arch}: launches {res['launches']}; expected "
+                             f"{spec['kernels']} to launch and "
+                             f"{spec['absent']} not to")
+    kern = spec["forward_kernel"]
+    if kern and res["launches"][kern] != cfg.num_layers * forwards:
+        raise AssertionError(f"{kern} launched {res['launches'][kern]} "
+                             f"times in {forwards} full forwards of "
+                             f"{cfg.num_layers} layers")
     del params, batcher, ds
     torch.cuda.empty_cache()
     return res
 
-
-# the kernels of the index build and Alg. 4 search (phase 4); the LM path
-# (phase 5) runs these and decode_attention
-PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
 
 KERNELS = {
     "beam_search": ("cuda", "src/repro_torch/csrc/beam_search.cu",
@@ -848,6 +1080,8 @@ KERNELS = {
                       "src/repro/kernels/topk_distance/kernel.py:99"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:76"),
+    "ssd": ("cuda", "src/repro_torch/csrc/ssd.cu",
+            "src/repro/kernels/ssd/kernel.py:85"),
 }
 
 
@@ -868,8 +1102,10 @@ def main() -> int:
     result["kernels"] = kernels_vs_plain(dev)
     result["small_index"] = small_index_agreement()
     result["main_path"] = main_path(args.n, N_QUERIES, os.cpu_count() or 1)
-    result["lm_float32_check"] = lm_float32_check(dev)
-    result["lm_path"] = lm_path(dev)
+    result["lm_float32_check"] = lm_float32_check(dev, "qwen3-1.7b")
+    result["lm_path"] = lm_path(dev, "qwen3-1.7b")
+    result["ssm_float32_check"] = lm_float32_check(dev, "mamba2-780m")
+    result["ssm_path"] = lm_path(dev, "mamba2-780m")
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -879,8 +1115,8 @@ def main() -> int:
         line.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "launches": result["main_path"]["launches"][name]
-            + result["lm_path"]["launches"][name],
+            "launches": sum(result[phase]["launches"][name] for phase in
+                            ("main_path", "lm_path", "ssm_path")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

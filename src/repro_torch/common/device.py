@@ -6,6 +6,7 @@ it with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -20,3 +21,14 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of CUDA device ``dev``."""
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())

@@ -73,8 +73,13 @@ def index_from_arrays(config: Mapping, meta: Mapping,
 
 
 LM_TOP_KEYS = ("embedding", "final_norm", "lm_head")
-LM_LAYER_KEYS = ("norm_attn", "norm_mlp", "w_q", "w_k", "w_v", "w_o",
-                 "q_norm", "k_norm", "w_gate", "w_in", "w_out")
+# the keys of each ported layer group, stacked on a leading layer axis
+LM_LAYER_KEYS = {
+    "attention": ("norm_attn", "norm_mlp", "w_q", "w_k", "w_v", "w_o",
+                  "q_norm", "k_norm", "w_gate", "w_in", "w_out"),
+    "mamba2": ("norm_in", "in_proj", "bc_proj", "dt_w", "dt_bias", "a_log",
+               "d_skip", "conv_w", "conv_b", "ssm_norm", "out_proj"),
+}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -89,14 +94,17 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def lm_params_from_reference(params: Mapping, cfg: ArchConfig,
                              device: DeviceLike = "cuda") -> dict:
     """The port's parameters of ``cfg`` from the reference's parameter
-    tree as numpy arrays: ``embedding``, ``final_norm``, ``lm_head`` (and
-    ``frontend_proj``) at the top, and the attention group's weights
-    under ``blocks/attention`` with their leading layer axis. The other
-    groups are not ported yet."""
+    tree as numpy arrays: ``embedding``, ``final_norm`` and ``lm_head`` at
+    the top, and each layer group's weights (``blocks/attention``,
+    ``blocks/mamba2``; ``LM_LAYER_KEYS``) with their leading layer axis.
+    Every array keeps its dtype (the Mamba2 ``a_log``, ``dt_bias`` and
+    ``d_skip`` stay float32 in a bf16 model). Other groups and keys are
+    not ported yet and raise."""
     from repro_torch.models.transformer import _check_ported
     dev = resolve_device(device)
     _check_ported(cfg)
-    extra = set(params.get("blocks", {})) - {"attention"}
+    blocks = params.get("blocks", {})
+    extra = set(blocks) - set(LM_LAYER_KEYS)
     if extra:
         raise NotImplementedError(f"parameter groups {sorted(extra)} are not "
                                   f"ported yet")
@@ -106,11 +114,12 @@ def lm_params_from_reference(params: Mapping, cfg: ArchConfig,
                                   f"ported yet")
     out = {key: _tensor(params[key], dev) for key in LM_TOP_KEYS
            if key in params}
-    layers = params["blocks"]["attention"]
-    unknown = set(layers) - set(LM_LAYER_KEYS)
-    if unknown:
-        raise NotImplementedError(f"layer parameters {sorted(unknown)} are "
-                                  f"not ported yet")
-    out["blocks"] = {"attention": {key: _tensor(a, dev)
-                                   for key, a in layers.items()}}
+    out["blocks"] = {}
+    for group, layers in blocks.items():
+        unknown = set(layers) - set(LM_LAYER_KEYS[group])
+        if unknown:
+            raise NotImplementedError(f"{group} layer parameters "
+                                      f"{sorted(unknown)} are not ported yet")
+        out["blocks"][group] = {key: _tensor(a, dev)
+                                for key, a in layers.items()}
     return out

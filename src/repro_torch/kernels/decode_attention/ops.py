@@ -6,10 +6,10 @@ PyTorch version for tensors on the CPU. Port of
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
+from repro_torch.common.device import sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -21,7 +21,6 @@ MIN_SPLIT_ROWS = 256
 MAX_SPLITS = 64
 
 _lib = None
-_sm_count: Dict[int, int] = {}
 
 
 def _library():
@@ -41,15 +40,6 @@ def num_splits(b: int, kvh: int, s: int, sms: int) -> int:
     """How many blocks share one (batch row, kv head)'s cache rows."""
     want = -(-BLOCKS_PER_SM * sms // max(b * kvh, 1))
     return max(1, min(want, MAX_SPLITS, -(-s // MIN_SPLIT_ROWS)))
-
-
-def _sms(dev: torch.device) -> int:
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    if index not in _sm_count:
-        _sm_count[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _sm_count[index]
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,7 +79,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
     if b == 0 or s == 0:
         return out.zero_()
-    splits = num_splits(b, kvh, s, _sms(dev))
+    splits = num_splits(b, kvh, s, sm_count(dev))
     part_m = part_l = part_acc = None
     if splits > 1:
         g = h // kvh

@@ -1,5 +1,6 @@
 """Model assembly: the layer plan, parameters, caches and the forward pass
-(port of ``repro.models.transformer`` for the ``attention`` group).
+(port of ``repro.models.transformer`` for the ``attention`` and ``mamba2``
+groups).
 
 The layer stack of an ArchConfig is cut into *segments*: maximal runs of
 layers with the same (parameter group, static behaviour). Each group's
@@ -7,8 +8,9 @@ parameters are stacked on a leading layer axis, and a segment runs as a
 Python loop over its layers (the reference's ``lax.scan``).
 
 Ported: the ``attention`` group with full attention, dense MLPs, the
-decode cache and prefill. Not ported yet (ROADMAP.md, section 1): the
-``mamba2`` and ``shared_attention`` groups (Mamba2 and zamba2 families),
+decode cache and prefill; the ``mamba2`` group (Mamba2 blocks, whose
+prefill runs the SSD kernel) with its recurrent decode state. Not ported
+yet (ROADMAP.md, section 1): the ``shared_attention`` group (zamba2),
 MoE MLPs, and the ring caches of sliding-window layers; each raises
 ``NotImplementedError``. Mesh sharding and remat are not ported.
 """
@@ -28,10 +30,10 @@ from repro_torch.models.attention import (SLIDING_TODO, AttnSpec,
                                           decode_attention_block,
                                           init_attention_params,
                                           layer_attn_spec)
+from repro_torch.models.ssm import init_mamba2_params, init_ssm_state, \
+    mamba2_block
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-MAMBA_TODO = ("the mamba2 block (SSD) is not ported yet (ROADMAP.md "
-              "section 1: the mamba2-780m path, with the ssd kernel)")
 SHARED_TODO = ("weight-tied shared attention (zamba2) is not ported yet "
                "(ROADMAP.md section 1: shared attention)")
 MOE_TODO = "MoE layers are not ported yet (ROADMAP.md section 1: MoE)"
@@ -97,8 +99,6 @@ def _check_ported(cfg: ArchConfig) -> None:
     if cfg.frontend:
         raise NotImplementedError(FRONTEND_TODO)
     for seg in build_plan(cfg)[0]:
-        if seg.group == "mamba2":
-            raise NotImplementedError(MAMBA_TODO)
         if seg.group == "shared_attention":
             raise NotImplementedError(SHARED_TODO)
 
@@ -113,14 +113,18 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     """Synthetic parameters of ``cfg`` on ``device``: dense weights are
     ``normal / sqrt(fan_in)`` drawn from ``generator`` (on its own device;
     a generator seeded 0 on ``device`` when none is given), norm scales
-    zero. Keys follow the reference's tree; the layers of the attention
-    group are stacked on a leading axis under ``blocks/attention``."""
+    zero, and the Mamba2 constants of the reference. Keys follow the
+    reference's tree: the layers of each group in the plan are stacked on
+    a leading axis under ``blocks/attention`` and ``blocks/mamba2``."""
     dev = resolve_device(device)
     _check_ported(cfg)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = DTYPES[cfg.dtype]
-    d, f, n = cfg.d_model, cfg.d_ff, cfg.num_layers
+    d, f = cfg.d_model, cfg.d_ff
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k == BlockKind.ATTENTION for k in kinds)
+    n_mamba = sum(k == BlockKind.MAMBA2 for k in kinds)
 
     def dense(shape, fan_in):
         return L.dense_init(shape, fan_in, dtype, generator, dev)
@@ -133,13 +137,20 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     params["final_norm"] = zeros(d)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.vocab_size), d)
-    blocks = {"norm_attn": zeros(n, d), "norm_mlp": zeros(n, d)}
-    blocks.update(init_attention_params(cfg, dtype, generator, dev,
-                                        layers=n))
-    blocks["w_gate"] = dense((n, d, f), d)
-    blocks["w_in"] = dense((n, d, f), d)
-    blocks["w_out"] = dense((n, f, d), f)
-    params["blocks"]["attention"] = blocks
+    if n_attn:
+        n = n_attn
+        blocks = {"norm_attn": zeros(n, d), "norm_mlp": zeros(n, d)}
+        blocks.update(init_attention_params(cfg, dtype, generator, dev,
+                                            layers=n))
+        blocks["w_gate"] = dense((n, d, f), d)
+        blocks["w_in"] = dense((n, d, f), d)
+        blocks["w_out"] = dense((n, f, d), f)
+        params["blocks"]["attention"] = blocks
+    if n_mamba:
+        blocks = {"norm_in": zeros(n_mamba, d)}
+        blocks.update(init_mamba2_params(cfg, dtype, generator, dev,
+                                         layers=n_mamba))
+        params["blocks"]["mamba2"] = blocks
     return params
 
 
@@ -151,9 +162,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 def make_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device: DeviceLike = "cuda") -> dict:
     """Zeroed decode caches per cache group: ``{"attention": {"k", "v"}}``
-    of [layers, batch, max_seq, KV, hd] in the model's dtype. One layer's
-    slice ``cache["attention"]["k"][i]`` is contiguous, and decode writes
-    into it in place."""
+    of [layers, batch, max_seq, KV, hd] in the model's dtype, and
+    ``{"mamba2": {"ssm", "conv"}}`` of [layers, batch, H, N, P] float32
+    and [layers, batch, W-1, d_inner] in the model's dtype. One layer's
+    slice (``cache["attention"]["k"][i]``) is contiguous, and decode
+    writes into it in place."""
     dev = resolve_device(device)
     _check_ported(cfg)
     _, cache_slots = build_plan(cfg)
@@ -161,6 +174,11 @@ def make_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     cache: dict = {}
     for g, slots in cache_slots.items():
+        if g == "mamba2":
+            states = init_ssm_state(cfg, batch, device=dev)
+            cache[g] = {name: st.new_zeros((slots,) + st.shape)
+                        for name, st in zip(("ssm", "conv"), states)}
+            continue
         if g.endswith("@swa"):
             raise NotImplementedError(SLIDING_TODO)
         cache[g] = {name: torch.zeros((slots, batch, max_seq, kvh, hd),
@@ -171,9 +189,13 @@ def make_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
 
 def grow_cache(cache: dict, max_seq: int) -> dict:
     """Pad the kv seq dim of a prefill-built cache with zeros to
-    ``max_seq``."""
+    ``max_seq``; the Mamba2 states have no seq dim and stay as they
+    are."""
     out = {}
     for g, sub in cache.items():
+        if g == "mamba2":
+            out[g] = sub
+            continue
         if g.endswith("@swa"):
             raise NotImplementedError(SLIDING_TODO)
         out[g] = {name: a if a.shape[2] >= max_seq else
@@ -210,6 +232,18 @@ def _attn_layer_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return x + L.swiglu(h, p["w_gate"], p["w_in"], p["w_out"]), new_kv
 
 
+def _mamba_layer_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                     state: Optional[dict] = None, decode: bool = False):
+    """One Mamba2 layer. Returns (x, {"ssm", "conv"}); in decode the
+    states are ``state``'s tensors, updated in place."""
+    h = L.rms_norm(x, p["norm_in"], cfg.norm_eps)
+    ssm_state = state["ssm"] if state is not None else None
+    conv_state = state["conv"] if state is not None else None
+    out, (new_ssm, new_conv) = mamba2_block(
+        p, cfg, h, ssm_state, conv_state, decode=decode)
+    return x + out, {"ssm": new_ssm, "conv": new_conv}
+
+
 def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
             cache: Optional[dict] = None,
             decode_pos: Optional[torch.Tensor] = None,
@@ -222,7 +256,8 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
       aux, None).
     Prefill: as train with build_cache=True -> the third output is a
       cache whose kv seq dim covers the prefill length (pad it with
-      ``grow_cache`` before decoding).
+      ``grow_cache`` before decoding) and, for Mamba2 layers, the final
+      SSM and conv states.
     Decode: inputs [B, 1], cache from ``make_cache``, decode_pos [B] ->
       (logits [B, 1, V], aux, cache), the cache updated in place.
     skip_head=True returns the final-norm hidden states [B, S, D] in
@@ -234,21 +269,25 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     positions = decode_pos[:, None] if decode else \
         torch.arange(x.shape[1], device=x.device)[None]
 
-    blocks = params["blocks"]["attention"]
-    new_kvs: Dict[str, list] = {}
+    new_states: Dict[str, list] = {}
     for seg in build_plan(cfg)[0]:
+        blocks = params["blocks"][seg.group]
         for j in range(seg.length):
             p = {key: w[seg.start + j] for key, w in blocks.items()}
-            kv = None
+            state = None
             if decode:
                 layer = seg.cache_start + j
-                kv = {name: a[layer]
-                      for name, a in cache[seg.cache_group].items()}
-            x, new_kv = _attn_layer_fwd(p, cfg, x, positions, seg.spec,
-                                        kv=kv, pos=decode_pos,
-                                        build_cache=build_cache)
+                state = {name: a[layer]
+                         for name, a in cache[seg.cache_group].items()}
+            if seg.group == "mamba2":
+                x, new_state = _mamba_layer_fwd(p, cfg, x, state,
+                                                decode=decode)
+            else:
+                x, new_state = _attn_layer_fwd(
+                    p, cfg, x, positions, seg.spec, kv=state,
+                    pos=decode_pos, build_cache=build_cache)
             if build_cache:
-                new_kvs.setdefault(seg.cache_group, []).append(new_kv)
+                new_states.setdefault(seg.cache_group, []).append(new_state)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if skip_head:
@@ -261,8 +300,8 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     if decode:
         return logits, aux, cache
     if build_cache:
-        prefill_cache = {g: {name: torch.stack([kv[name] for kv in kvs])
-                             for name in ("k", "v")}
-                         for g, kvs in new_kvs.items()}
+        prefill_cache = {g: {name: torch.stack([st[name] for st in sts])
+                             for name in sts[0]}
+                         for g, sts in new_states.items()}
         return logits, aux, prefill_cache
     return logits, aux, None

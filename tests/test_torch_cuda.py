@@ -8,6 +8,10 @@ sums a dot product in another order than cuBLAS, which can swap two
 candidates whose scores differ in the last bit), and scores of equal ids
 agree to rtol 1e-5, atol 1e-4. Flash-decode agrees with its plain version
 to rtol/atol 1e-4: both read the same cache values and sum in float32.
+The SSD scan agrees with its plain version on float32 copies of the same
+inputs to 1e-4 of the largest |y| (and of the largest |state|): both sum
+in float32, in another order, and the decays are exponentials of
+differences of float32 prefix sums that reach |cum| ~ 10^3 in a chunk.
 """
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from repro_torch.kernels.beam_search import beam_search_cuda, beam_search_ref
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   flash_decode_cuda)
 from repro_torch.kernels.merge_topk import merge_topk_cuda, merge_topk_ref
+from repro_torch.kernels.ssd import ssd_cuda, ssd_ref
 from repro_torch.kernels.topk_distance import (topk_similarity_cuda,
                                                topk_similarity_ref)
 
@@ -170,3 +175,97 @@ def test_lm_batcher_on_card_matches_cpu(cuda):
         runs.append({c.request_id: c.tokens for c in b.done})
     assert runs[0] == runs[1]
     assert flash_decode_cuda.launches - before == cfg.num_layers * steps
+
+
+# (B, S, H, P, N, chunk): the reference kernel test's shapes, aligned,
+# ragged (S not a multiple of the chunk or of the 64-row tile), S below
+# one chunk, and the full width (H 48, P 64, N 128, chunk 256)
+SSD_SHAPES = [(1, 64, 4, 8, 16, 16), (2, 96, 8, 16, 8, 32),
+              (1, 128, 2, 8, 32, 64), (1, 50, 4, 8, 16, 16),
+              (2, 33, 2, 8, 8, 32), (1, 16, 2, 4, 8, 16),
+              (2, 300, 16, 16, 16, 32), (1, 100, 3, 5, 7, 256),
+              (1, 513, 48, 64, 128, 256), (2, 700, 4, 64, 128, 256)]
+
+
+def _ssd_inputs(shape, dtype, cuda, initial):
+    b, s, h, p, n, _ = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(b, s, h, p, device=cuda, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, device=cuda, generator=g))
+    a = -torch.linspace(1.0, 16.0, h, device=cuda)
+    bc = torch.randn(b, s, 2 * n, device=cuda, generator=g).to(dtype)
+    init = torch.randn(b, h, n, p, device=cuda, generator=g) \
+        if initial else None
+    return x, dt, a, bc[..., :n], bc[..., n:], init
+
+
+@pytest.mark.parametrize("initial", (False, True), ids=("zero", "init"))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_kernel_matches_plain(cuda, shape, dtype, initial):
+    x, dt, a, bm, cm, init = _ssd_inputs(shape, dtype, cuda, initial)
+    before = ssd_cuda.launches
+    y, st = ssd_cuda(x, dt, a, bm, cm, chunk=shape[-1], initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    assert y.dtype == st.dtype == torch.float32
+    y_r, st_r = ssd_ref(x.float(), dt, a, bm.float(), cm.float(),
+                        chunk=shape[-1], initial_state=init)
+    for got, want in ((y, y_r), (st, st_r)):
+        assert torch.isfinite(got).all()
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+
+
+def test_ssd_refuses_what_it_is_not_built_for(cuda):
+    for p, n, chunk in ((65, 16, 32), (16, 129, 32), (16, 16, 257)):
+        x, dt, a, bm, cm, _ = _ssd_inputs((1, 40, 2, p, n, chunk),
+                                          torch.float32, cuda, False)
+        with pytest.raises(ValueError):
+            ssd_cuda(x, dt, a, bm, cm, chunk=chunk)
+
+
+def test_mamba2_batcher_on_card_matches_cpu(cuda):
+    """The reduced mamba2 config served on the card runs the SSD kernel
+    once per layer and prefill, and completes the same tokens as on the
+    CPU."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    cfg = get_arch("mamba2-780m").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = {"blocks": {"mamba2": {
+        k: v.to(cuda) for k, v in cpu["blocks"]["mamba2"].items()}},
+        **{k: v.to(cuda) for k, v in cpu.items() if k != "blocks"}}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (20, 45, 80)]
+    runs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        b = ContinuousBatcher(params, cfg, num_slots=2, max_seq=128,
+                              device=dev)
+        for i, p in enumerate(prompts):
+            b.submit(Request(i, p, max_new_tokens=6))
+        before = ssd_cuda.launches
+        b.run_until_drained()
+        runs.append({c.request_id: c.tokens for c in b.done})
+    assert runs[0] == runs[1]
+    assert ssd_cuda.launches - before == cfg.num_layers * len(prompts)
+
+
+@pytest.mark.parametrize("retrieval", (False, True),
+                         ids=("plain", "retrieval"))
+@pytest.mark.parametrize("arch", ("qwen3-1.7b", "mamba2-780m"))
+def test_serve_entry_point_runs_on_card(cuda, arch, retrieval):
+    """The launcher on the card (reduced config): qwen3 decodes through
+    flash-decode, mamba2 prefills through the SSD kernel."""
+    from repro_torch.launch import serve
+    reset_launch_counts()
+    argv = ["--arch", arch, "--tokens", "4"]
+    gen = serve.main(argv + (["--retrieval"] if retrieval else []))
+    assert gen.shape == (2, 4) and ((gen >= 0) & (gen < 512)).all()
+    counts = launch_counts()
+    kernel, absent = (("ssd", "decode_attention") if arch == "mamba2-780m"
+                      else ("decode_attention", "ssd"))
+    assert counts[kernel] > 0 and counts[absent] == 0, counts

@@ -29,6 +29,8 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(
 def test_every_module_imports_without_jax_or_reference():
     assert "repro_torch.kernels.beam_search.ops" in MODULES
     assert "repro_torch.launch.serve" in MODULES
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd.ops",
+            "repro_torch.configs.mamba2_780m"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"

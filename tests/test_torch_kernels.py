@@ -1,8 +1,8 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
 For each module that holds a Hopper kernel (``beam_search``,
-``merge_topk``, ``topk_distance``, ``decode_attention``) the same numpy
-inputs go through the
+``merge_topk``, ``topk_distance``, ``decode_attention``, ``ssd``) the
+same numpy inputs go through the
 reference (its jnp oracle, its numpy twin, or its Pallas kernel in
 interpret mode) and through the port's dispatch, which on CPU tensors
 takes the plain PyTorch version. Ids must be equal; scores agree to
@@ -10,7 +10,9 @@ rtol/atol 1e-5 (l2 to atol 1e-4, for the cancellation in
 ``2q.x - |q|^2 - |x|^2``); k-means centres to 1e-4 from the same start;
 decode attention to 1e-5 against the jnp oracle and to 2e-4 against the
 Pallas kernel in interpret mode (its online softmax sums in another
-order, the tolerance of the reference's own kernel test).
+order, the tolerance of the reference's own kernel test); the SSD scan to
+1e-4 against the jnp oracle and to 2e-3 against the Pallas kernel in
+interpret mode (the tolerance of ``tests/test_kernel_ssd.py``).
 Float inputs are drawn from a normal distribution so that no two scores
 tie; integer-grid cases, whose ties are exact, are held against the
 numpy twin, which breaks ties as the port does (-0.0 == +0.0).
@@ -32,6 +34,8 @@ from repro.kernels.beam_search.ops import _apply_filter as ref_apply_filter
 from repro.kernels.merge_topk import merge_topk_np as ref_merge_np
 from repro.kernels.merge_topk import merge_topk_ref as ref_merge
 from repro.kernels.quant_distance import quant_scores_ref
+from repro.kernels.ssd.kernel import ssd_pallas
+from repro.kernels.ssd.ref import ssd_ref as ref_ssd
 from repro.kernels.topk_distance import topk_similarity_ref as ref_topk
 from repro.kernels.topk_distance.kernel import topk_similarity_pallas
 from repro_torch.core import kmeans as TK
@@ -47,6 +51,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_ref,
 from repro_torch.kernels.merge_topk import merge_topk, merge_topk_cuda
 from repro_torch.kernels.merge_topk import merge_topk_np
 from repro_torch.kernels.quant_distance import quant_scores
+from repro_torch.kernels.ssd import ssd_cuda, ssd_ref, ssd_scan
 from repro_torch.kernels.topk_distance import (topk_similarity,
                                                topk_similarity_cuda)
 
@@ -345,6 +350,9 @@ def test_wrappers_take_only_cuda_tensors():
     kv = torch.zeros(2, 8, 2, 16)
     pos = torch.zeros(2, dtype=torch.int32)
     flash_decode(torch.zeros(2, 4, 16), kv, kv, pos)
+    ssd_in = (torch.zeros(1, 5, 2, 4), torch.ones(1, 5, 2), -torch.ones(2),
+              torch.zeros(1, 5, 8), torch.zeros(1, 5, 8))
+    ssd_scan(*ssd_in, chunk=4)
     assert launch_counts() == before
     with pytest.raises(ValueError):
         beam_search_cuda(*t, metric="l2", ef=4, max_iters=10)
@@ -355,6 +363,8 @@ def test_wrappers_take_only_cuda_tensors():
         topk_similarity_cuda(torch.zeros(2, 4), torch.zeros(5, 4), k=1)
     with pytest.raises(ValueError):
         flash_decode_cuda(torch.zeros(2, 4, 16), kv, kv, pos)
+    with pytest.raises(ValueError):
+        ssd_cuda(*ssd_in, chunk=4)
 
 
 def _decode_case(b, s, h, kvh, hd, pos_mode, seed):
@@ -404,3 +414,70 @@ def test_decode_attention_reads_bf16_caches_in_float32():
                                jnp.asarray(vb.float()), jnp.asarray(pos))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+def _ssd_case(b, s, h, p, n, seed, initial=False):
+    """The inputs of tests/test_kernel_ssd.py::_case (and an initial
+    state)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.3, size=(b, s, h)).astype(np.float32)
+    a = -rng.uniform(0.5, 4.0, size=(h,)).astype(np.float32)
+    bm = rng.normal(size=(b, s, n)).astype(np.float32)
+    cm = rng.normal(size=(b, s, n)).astype(np.float32)
+    init = rng.normal(size=(b, h, n, p)).astype(np.float32) if initial \
+        else None
+    return (x, dt, a, bm, cm), init
+
+
+# (B, S, H, P, N, chunk) of tests/test_kernel_ssd.py: multi-chunk, head
+# blocks, a large chunk, S not a multiple of the chunk (50, 33), a
+# single chunk
+@pytest.mark.parametrize("shape", [
+    (1, 64, 4, 8, 16, 16), (2, 96, 8, 16, 8, 32), (1, 128, 2, 8, 32, 64),
+    (1, 50, 4, 8, 16, 16), (2, 33, 2, 8, 8, 32), (1, 16, 2, 4, 8, 16)],
+    ids=str)
+def test_ssd_matches_reference(shape):
+    *dims, chunk = shape
+    case, _ = _ssd_case(*dims, seed=sum(shape))
+    y, st = ssd_ref(*(torch.as_tensor(a) for a in case), chunk=chunk)
+    jcase = [jnp.asarray(a) for a in case]
+    y_ref, st_ref = ref_ssd(*jcase, chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_ref), rtol=1e-4,
+                               atol=1e-4)
+    y_pl, st_pl = ssd_pallas(*jcase, chunk=chunk, block_h=4, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_pl), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_pl), rtol=2e-3,
+                               atol=2e-3)
+    # the dispatch takes the plain version on CPU tensors
+    y_d, st_d = ssd_scan(*(torch.as_tensor(a) for a in case), chunk=chunk)
+    torch.testing.assert_close(y_d, y, rtol=0, atol=0)
+    torch.testing.assert_close(st_d, st, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s, chunk", [(64, 16), (33, 32), (20, 64)])
+def test_ssd_initial_state_matches_reference(s, chunk):
+    """A carried initial state, across chunks, a ragged chunk and S below
+    one chunk; and a scan split in two halves, the second started from
+    the first's final state, equals the whole scan."""
+    case, init = _ssd_case(2, s, 4, 8, 16, seed=s + chunk, initial=True)
+    ours = ssd_ref(*(torch.as_tensor(a) for a in case), chunk=chunk,
+                   initial_state=torch.as_tensor(init))
+    ref = ref_ssd(*(jnp.asarray(a) for a in case), chunk=chunk,
+                  initial_state=jnp.asarray(init))
+    for got, want in zip(ours, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+    x, dt, a, bm, cm = (torch.as_tensor(v) for v in case)
+    half = s // 2
+    y1, st1 = ssd_ref(x[:, :half], dt[:, :half], a, bm[:, :half],
+                      cm[:, :half], chunk=chunk)
+    y2, st2 = ssd_ref(x[:, half:], dt[:, half:], a, bm[:, half:],
+                      cm[:, half:], chunk=chunk, initial_state=st1)
+    whole = ssd_ref(x, dt, a, bm, cm, chunk=chunk)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), whole[0],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st2, whole[1], rtol=1e-4, atol=1e-4)

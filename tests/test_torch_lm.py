@@ -72,14 +72,15 @@ def _close(ours, ref, **tol):
 
 
 def test_config_and_registry_match_reference():
-    assert list_archs() == ["qwen3-1.7b"]
-    for reduce in (False, True):
-        ref, ours = ref_get_arch("qwen3-1.7b"), get_arch("qwen3-1.7b")
-        if reduce:
-            ref, ours = ref.reduced(), ours.reduced()
-        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
-        assert ours.param_count() == ref.param_count()
-        assert ours.layer_kinds() == ref.layer_kinds()
+    assert list_archs() == ["mamba2-780m", "qwen3-1.7b"]
+    for arch in list_archs():
+        for reduce in (False, True):
+            ref, ours = ref_get_arch(arch), get_arch(arch)
+            if reduce:
+                ref, ours = ref.reduced(), ours.reduced()
+            assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+            assert ours.param_count() == ref.param_count()
+            assert ours.layer_kinds() == ref.layer_kinds()
     full = get_arch("qwen3-1.7b")
     assert (full.num_layers, full.d_model, full.num_heads,
             full.num_kv_heads, full.resolved_head_dim, full.d_ff,
@@ -103,8 +104,7 @@ def test_init_params_match_reference_tree(model):
 
 def test_unported_families_raise():
     base = get_arch("qwen3-1.7b").reduced()
-    for cfg in (dataclasses.replace(base, block_pattern=(BlockKind.MAMBA2,)),
-                dataclasses.replace(base, block_pattern=(
+    for cfg in (dataclasses.replace(base, block_pattern=(
                     BlockKind.SHARED_ATTENTION,)),
                 dataclasses.replace(base, moe=MoEConfig(4, 2))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
