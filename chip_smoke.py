@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port of the Pyramid index, and kNN-LM serving
-over it, on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of the Pyramid index, its serving engine,
+and kNN-LM serving over it, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n 50000]
 
@@ -20,7 +20,9 @@ Phases, each raising on failure (the script then exits non-zero):
      filtered batch, each answer checked (well formed, exact scores of
      the rows returned, only alive rows under the filter), with recall@10
      against brute force, QPS, access rate, peak device memory and every
-     kernel's launch count;
+     kernel's launch count; and a brute-force scan of the whole int8
+     arena through ``quant_scores`` (the int8 distance kernel's entry
+     point), held against its plain version on a slice of the queries;
   5. kNN-LM serving of qwen3-1.7b at full width (bf16, synthetic weights
      from a seeded generator): first a float32 check that greedy decode
      from the prefill cache matches the full forward step by step; then
@@ -36,7 +38,16 @@ Phases, each raising on failure (the script then exits non-zero):
      the full forward's own inputs; the end-to-end logits are recorded),
      a datastore of 4,096 keys, 16 requests in 8 slots, and a kNN-LM
      step; the SSD kernel must run once per layer in every full forward
-     and never in a decode step.
+     and never in a decode step. Phases 5 and 6 run their kNN-LM step a
+     second time through the serving engine (``open_datastore_client``,
+     as the reference launcher looks up);
+  7. Pyramid's serving engine on phase 4's index: ``ServingEngine`` with
+     2 replicas of each of the 16 shards (32 executor threads on one
+     device arena), 1,024 queries through ``PyramidClient.search_batch``
+     in float32 and in int8 (rerank factor 4), then a seeded
+     ``FaultSchedule.storm`` under the Monitor with ``auto_restart``:
+     every future resolves exactly once, the storm's ids equal the
+     fault-free run's query by query, and recall@10 is held to phase 4's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -72,6 +83,12 @@ RTOL, ATOL = 1e-5, 1e-4
 # flash-decode vs its plain version: both read the same cache values and
 # sum in float32, in another order
 DECODE_TOL = 1e-4
+# the int8 distance scan vs its plain version, relative to the largest
+# |score| of the output: both dequantize identically and sum d = 128
+# float32 products in another order (the kernel in ascending d, cuBLAS in
+# its own), so a score near zero can part by more than 1e-5 of itself;
+# the elementwise rtol = atol = 1e-5 of the JAX tests is recorded beside
+QUANT_TOL = 1e-5
 # the SSD scan vs its plain version on float32 copies of the same inputs,
 # as a share of the largest |y| (and of the largest |state|): both sum in
 # float32, in another order, and the decays are exponentials of
@@ -265,6 +282,75 @@ def check_topk(dev, b: int, n: int, d: int, k: int, metric: str,
     return out
 
 
+def quant_inputs(dev, b: int, n: int, d: int, seed: int, phase4: bool):
+    """The int8 scan's inputs: with ``phase4``, phase 4's own data, queries
+    and int8 grid (``clustered_vectors``, ``query_set``, the index's
+    ``QuantParams`` from per-dimension min and max over all rows), else
+    the JAX kernel test's (rows with per-dimension scales of 0.5 to 3,
+    normal queries)."""
+    import torch
+    from repro_torch.core.quant import QuantParams
+    from repro_torch.data.synthetic import clustered_vectors, query_set
+    if phase4:
+        x = clustered_vectors(n, d, 1000, seed=0)
+        q = query_set(x, b, seed=1)
+    else:
+        rng = np.random.default_rng(seed)
+        x = (rng.normal(size=(n, d)) * rng.uniform(0.5, 3.0, size=(1, d))
+             ).astype(np.float32)
+        q = rng.normal(size=(b, d)).astype(np.float32)
+    params = QuantParams.from_data(x)
+    return [torch.as_tensor(a).to(dev) for a in (
+        q, params.quantize(x), params.scale, params.zero)]
+
+
+def check_quant(dev, b: int, n: int, d: int, metric: str,
+                phase4: bool = False, seed: int = 6) -> dict:
+    """The int8 distance scan against its plain version (dequantize, then
+    ``similarity_matrix``), with ``torch.matmul`` of the queries against
+    the already dequantized float32 rows as a yardstick: a different
+    input, not the same function, so no library call is named."""
+    import torch
+    from repro_torch.kernels.quant_distance import (dequantize,
+                                                    quant_scores_cuda,
+                                                    quant_scores_ref)
+    q, codes, scale, zero = quant_inputs(dev, b, n, d, seed, phase4)
+    out = quant_scores_cuda(q, codes, scale, zero, metric=metric)
+    ref = quant_scores_ref(q, codes, scale, zero, metric=metric)
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    err = float(diff.max())
+    scale_ = float(ref.abs().max())
+    outside = int((diff > 1e-5 + 1e-5 * ref.abs()).sum())
+    del diff
+    if not (out.shape == (b, n) and bool(torch.isfinite(out).all())
+            and err <= QUANT_TOL * scale_):
+        raise AssertionError(
+            f"quant_distance B={b} n={n} d={d} {metric}: kernel disagrees "
+            f"with its plain version (max abs err {err:.3g}, |score| <= "
+            f"{scale_:.3g}, tolerance {QUANT_TOL} of it)")
+    del out, ref
+    rows = dequantize(codes, scale, zero)
+    reps = 20 if b * n > 1e6 else 200
+    ms = cuda_ms(lambda: quant_scores_cuda(q, codes, scale, zero,
+                                           metric=metric), reps)
+    plain_ms = cuda_ms(lambda: quant_scores_ref(q, codes, scale, zero,
+                                                metric=metric), 5)
+    yardstick_ms = cuda_ms(lambda: torch.matmul(q, rows.T), reps)
+    # the least the card must move: codes, queries, scale and zero read
+    # once, the float32 scores written once; 2 B n d operations
+    nbytes = n * d + 4 * b * d + 4 * b * n + 8 * d
+    ops = 2 * b * n * d
+    del rows, q, codes
+    torch.cuda.empty_cache()
+    return {"shape": f"B={b} n={n} d={d}", "metric": metric,
+            "max_abs_err": err, "score_scale": scale_,
+            "tolerance": QUANT_TOL, "outside_rtol_atol_1e-5": outside,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "matmul_yardstick_ms": yardstick_ms,
+            "bytes": nbytes, "ops": ops, **bound(nbytes, ops)}
+
+
 def device_ms_of(fn, reps: int, name: str) -> float:
     """Device time per call of the kernels whose name holds ``name``,
     from ``torch.profiler`` over ``reps`` calls: the card's own time,
@@ -424,11 +510,11 @@ def check_ssd(dev, *, b: int = 1, s: int = 513, dtype: str = "bfloat16",
                     else FP32_FLOPS)}
 
 
-def kernels_vs_plain(dev) -> dict:
+def kernels_vs_plain(dev, n: int) -> dict:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"beam_search": [], "merge_topk": [], "topk_distance": [],
-           "decode_attention": [], "ssd": []}
+           "quant_distance": [], "decode_attention": [], "ssd": []}
     # the shard walk's shape (ef=100), then the filtered shard walk's
     # (ef = 100 x the inflation cap 8, n near the main path's largest
     # shard) and the routing walk's over the meta-HNSW (1,000 centres)
@@ -457,6 +543,21 @@ def kernels_vs_plain(dev) -> dict:
         log(f"topk_distance k={k} {metric}: ids equal {r['ids_equal']:.5f} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms")
+    # the int8 scan: a brute-force scan of phase 4's whole quantized index,
+    # the reference's roofline shape (benchmarks/roofline.py:208), and a
+    # ragged shape
+    for b, rows, d in ((N_QUERIES, n, 128), (256, 16_384, 128),
+                       (37, 53, 8)):
+        for metric in ("l2", "ip", "angular"):
+            r = check_quant(dev, b, rows, d, metric,
+                            phase4=(b, rows) == (N_QUERIES, n))
+            res["quant_distance"].append(r)
+            log(f"quant_distance {r['shape']} {metric}: max err "
+                f"{r['max_abs_err']:.3g} (|score| <= {r['score_scale']:.3g};"
+                f" {r['outside_rtol_atol_1e-5']} outside rtol=atol=1e-5) "
+                f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+                f"matmul yardstick {r['matmul_yardstick_ms']:.4f} ms bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     # a full-width qwen3-1.7b decode step's attention (8 slots, a 1,024-row
     # cache; bf16 as served, f32 as checked), then a long cache
     for kw in (dict(), dict(dtype="float32"),
@@ -672,18 +773,60 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
             f"{n_queries}) access rate {res[name]['access_rate']:.4f} "
             f"launches per batch {res[name]['launches_per_batch']} device "
             f"{res[name]['device']}")
+    res["int8_scan"] = int8_scan(index, q, k, truth)
     res["launches"] = launch_counts()
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"main path launches {res['launches']} peak device memory "
         f"{res['peak_device_bytes'] / 2 ** 30:.2f} GiB")
-    if any(res["launches"][name] <= 0 for name in PYRAMID_KERNELS):
+    if any(res["launches"][name] <= 0 for name in PYRAMID_KERNELS
+           + ("quant_distance",)):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{res['launches']}")
     if res["float32"]["recall@10"] < 0.90:
         raise AssertionError("float32 recall@10 below 0.90")
     if res["int8"]["recall@10"] < res["float32"]["recall@10"] - 0.01:
         raise AssertionError("int8 recall@10 more than 0.01 below float32")
-    return res
+    state = {"index": index, "queries": q, "truth": truth}
+    return res, state
+
+
+def int8_scan(index, q, k: int, truth) -> dict:
+    """Brute force over the whole int8 arena through ``quant_scores``, the
+    int8 distance kernel's entry point: every stored code row (pad rows
+    masked) against every query, then the top k. Its top k must equal
+    the plain version's on the first 64 queries, and its recall@10
+    against the float32 truth is recorded."""
+    import torch
+    from repro_torch.kernels.quant_distance import (quant_scores,
+                                                    quant_scores_ref)
+    arena = index.arena("int8")
+    d = arena.data.shape[-1]
+    codes = arena.data.reshape(-1, d)
+    ids = arena.ids.reshape(-1).long()
+    scale, zero = arena.scale[0], arena.zero[0]
+    qt = torch.as_tensor(q).to(codes.device)
+
+    def top(scores):
+        scores = scores.masked_fill(ids[None, :] < 0, -torch.inf)
+        s, pos = torch.topk(scores, k, dim=1)
+        return ids[pos], s
+    (top_ids, top_s), dt = synced(lambda: top(quant_scores(
+        qt, codes, scale, zero, metric="l2")))
+    ref_ids, ref_s = top(quant_scores_ref(qt[:64], codes, scale, zero,
+                                          metric="l2"))
+    share = float((top_ids[:64] == ref_ids).float().mean())
+    ids_np = top_ids.cpu().numpy()
+    rec = recall_at(ids_np, truth)
+    out = {"rows": int(codes.shape[0]), "stored_rows": int((ids >= 0).sum()),
+           "seconds": dt, "recall@10": rec, "ids_equal_plain_64": share}
+    log(f"int8 brute-force scan (quant_scores over {out['rows']} code rows):"
+        f" recall@10 {rec:.4f}, {dt * 1e3:.1f} ms with top-k, top-10 equal "
+        f"to the plain version's on 64 queries {share:.4f}")
+    if ids_np.shape != truth.shape or not bool(torch.isfinite(top_s).all()) \
+            or share < IDS_EQUAL_MIN:
+        raise AssertionError(f"int8 brute-force scan malformed or off its "
+                             f"plain version: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -890,7 +1033,8 @@ def lm_path(dev, arch: str) -> dict:
     from repro_torch.serving.decode import prefill_step
     from repro_torch.serving.retrieval import (build_datastore,
                                                hidden_states, interpolate,
-                                               knn_probs)
+                                               knn_probs,
+                                               open_datastore_client)
     spec = LM_SPECS[arch]
     cell = spec["cell"]
     cfg = get_arch(arch)
@@ -1031,6 +1175,16 @@ def lm_path(dev, arch: str) -> dict:
     lookups = [synced(lambda: knn_probs(
         ds, queries, k=knn_k, vocab_size=cfg.vocab_size))[1]
         for _ in range(3)]
+    # the same step through the serving engine, as the reference launcher
+    # looks up (src/repro/launch/serve.py:95-140)
+    with open_datastore_client(ds) as client:
+        knn_c, lookup_c = synced(lambda: knn_probs(
+            ds, queries, k=knn_k, vocab_size=cfg.vocab_size, client=client))
+        lookups_c = [synced(lambda: knn_probs(
+            ds, queries, k=knn_k, vocab_size=cfg.vocab_size,
+            client=client))[1] for _ in range(3)]
+        executors = len(client.stats()["executors"])
+    hit_client = float(np.mean(knn_c.argmax(-1) == gold))
     mixed = interpolate(lm_logits, knn_p, lam=0.3)
     hit = float(np.mean(knn_p.argmax(-1) == gold))
     res.update({"knn_queries": len(prefix), "knn_k": knn_k,
@@ -1039,22 +1193,29 @@ def lm_path(dev, arch: str) -> dict:
                     mixed.argmax(-1) == gold)),
                 "lm_hit_rate": float(np.mean(lm_logits.argmax(-1) == gold)),
                 "lookup_ms_first": 1e3 * lookup_s,
-                "lookup_ms": 1e3 * float(np.mean(lookups))})
+                "lookup_ms": 1e3 * float(np.mean(lookups)),
+                "knn_hit_rate_engine": hit_client,
+                "engine_executors": executors,
+                "lookup_ms_engine_first": 1e3 * lookup_c,
+                "lookup_ms_engine": 1e3 * float(np.mean(lookups_c))})
     res["launches"] = launch_counts()
     res["full_forwards"] = forwards
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"kNN-LM: hit rate {hit:.4f} over {len(prefix)} corpus prefixes "
         f"(interpolated {res['interpolated_hit_rate']:.4f}, LM alone "
         f"{res['lm_hit_rate']:.4f}), lookup {res['lookup_ms']:.2f} ms for "
-        f"{len(prefix)} queries; launches {res['launches']} in {forwards} "
-        f"full forwards and {steps} decode steps; peak device memory "
+        f"{len(prefix)} queries; through the serving engine ({executors} "
+        f"executors) hit rate {hit_client:.4f}, lookup "
+        f"{res['lookup_ms_engine']:.2f} ms; launches {res['launches']} in "
+        f"{forwards} full forwards and {steps} decode steps; peak device "
+        f"memory "
         f"{res['peak_device_bytes'] / 2 ** 30:.2f} GiB")
     if mixed.shape != (len(prefix), cfg.vocab_size) or \
             not np.isfinite(mixed).all():
         raise AssertionError("kNN-LM: interpolated log-probs malformed")
-    if hit < KNN_HIT_MIN:
-        raise AssertionError(f"kNN-LM hit rate {hit:.4f} below "
-                             f"{KNN_HIT_MIN}")
+    if min(hit, hit_client) < KNN_HIT_MIN:
+        raise AssertionError(f"kNN-LM hit rate {hit:.4f} (through the "
+                             f"engine {hit_client:.4f}) below {KNN_HIT_MIN}")
     if any(res["launches"][k] <= 0 for k in spec["kernels"]) or any(
             res["launches"][k] != 0 for k in spec["absent"]):
         raise AssertionError(f"{arch}: launches {res['launches']}; expected "
@@ -1070,6 +1231,168 @@ def lm_path(dev, arch: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: Pyramid's serving engine on phase 4's index
+# ---------------------------------------------------------------------------
+
+ENGINE_REPLICAS = 2
+STORM_SEED = 7
+RECALL_SLACK = 0.02
+
+
+def engine_run(eng, q, k: int, name: str) -> dict:
+    """One batch of queries through ``PyramidClient.search_batch``: every
+    future must resolve exactly once (one completion each, its own query,
+    no id twice), and nothing stays pending. Returns the ids, the
+    per-query latencies and the wall time."""
+    from repro_torch.common.utils import nearest_rank
+    from repro_torch.core.client import PyramidClient
+    client = PyramidClient(eng, name=name)
+    completions = {}
+
+    def done(fut):
+        completions[fut.query_id] = completions.get(fut.query_id, 0) + 1
+    t0 = time.perf_counter()
+    futs = client.search_batch(q, k)
+    for f in futs:
+        f.add_done_callback(done)
+    results = [f.result(timeout=120.0) for f in futs]
+    wall = time.perf_counter() - t0
+    ids = np.full((len(q), k), -1, np.int64)
+    for i, (f, r) in enumerate(zip(futs, results)):
+        if r.query_id != f.query_id or len(set(r.ids.tolist())) != len(r.ids):
+            raise AssertionError(f"{name}: query {f.query_id} resolved with "
+                                 f"a foreign or duplicated result")
+        ids[i, :len(r.ids)] = r.ids
+    once = sorted(completions) == sorted(f.query_id for f in futs) and all(
+        c == 1 for c in completions.values())
+    if not once or eng.stats()["pending_queries"]:
+        raise AssertionError(f"{name}: futures did not resolve exactly once")
+    lat = sorted(r.latency_s for r in results)
+    return {"ids": ids, "wall_s": wall, "qps": len(q) / wall,
+            "query_p50_s": nearest_rank(lat, 50),
+            "query_p99_s": nearest_rank(lat, 99),
+            "hedges": sum(r.hedges for r in results)}
+
+
+def engine_stats_summary(eng) -> dict:
+    st = eng.stats()
+    lat = st["latency"]
+    return {"shard_e2e_p50_s_max": max(v["p50"] for v in lat.values()),
+            "shard_e2e_p99_s_max": max(v["p99"] for v in lat.values()),
+            "executors": len(st["executors"]),
+            "restarts": st["restarts"], "redispatched": st["redispatched"],
+            "hedged_queries": st["hedged_queries"],
+            "expired_queries": st["expired_queries"],
+            "access_rate": st["access_rate"],
+            "arena_vector_bytes": st["arena_vector_bytes"],
+            "recovery_events": len(st["recovery_timeline"]),
+            "fault_step": st["fault_step"]}
+
+
+def serving_path(state: dict, recall_single_host: float) -> dict:
+    """Phase 7: ``ServingEngine`` over phase 4's index (no second build),
+    float32, int8 with rerank factor 4, then a seeded fault storm under
+    the Monitor. The launch counts are set to 0 at its start and read at
+    its end."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultSchedule
+    index, q, truth = state["index"], state["queries"], state["truth"]
+    k = truth.shape[1]
+    w = index.num_shards
+    res = {"queries": len(q), "k": k, "shards": w,
+           "replicas": ENGINE_REPLICAS}
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    runs = {"float32": dict(), "int8": dict(quantize=True, rerank_factor=4)}
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        eng = ServingEngine(index, replicas=ENGINE_REPLICAS, **kw)
+        try:
+            start_s = time.perf_counter() - t0
+            first = engine_run(eng, q, k, name)
+            again = engine_run(eng, q, k, name)
+            if not np.array_equal(again["ids"], first["ids"]):
+                raise AssertionError(f"engine {name}: a repeated batch "
+                                     f"answered differently")
+            out = {key: again[key] for key in ("wall_s", "qps",
+                                                "query_p50_s",
+                                                "query_p99_s")}
+            out.update(first_batch_s=first["wall_s"], start_s=start_s,
+                       recall=recall_at(first["ids"], truth),
+                       **engine_stats_summary(eng))
+            if name == "float32":
+                res["fault_free_ids"] = first["ids"]
+                out["device"] = device_breakdown(
+                    lambda: engine_run(eng, q, k, name), out["wall_s"])
+        finally:
+            eng.shutdown()
+        res[name] = out
+        log(f"engine {name}: recall@10 {out['recall']:.4f} QPS "
+            f"{out['qps']:.1f} ({out['wall_s'] * 1e3:.1f} ms / batch of "
+            f"{len(q)}; first {out['first_batch_s'] * 1e3:.1f} ms) query "
+            f"p50 {out['query_p50_s'] * 1e3:.2f} ms p99 "
+            f"{out['query_p99_s'] * 1e3:.2f} ms, stats() shard p50 "
+            f"{out['shard_e2e_p50_s_max'] * 1e3:.2f} ms p99 "
+            f"{out['shard_e2e_p99_s_max'] * 1e3:.2f} ms, {out['executors']} "
+            f"executors, restarts {out['restarts']} redispatched "
+            f"{out['redispatched']} hedged {out['hedged_queries']}"
+            + (f" device {out['device']}" if "device" in out else ""))
+
+    storm = FaultSchedule.storm(STORM_SEED, num_shards=w,
+                                replicas=ENGINE_REPLICAS)
+    eng = ServingEngine(index, replicas=ENGINE_REPLICAS, auto_restart=True,
+                        fault_schedule=storm,
+                        monitor_opts={"backoff_base_s": 0.02,
+                                      "period_s": 0.05})
+    try:
+        stormy = engine_run(eng, q, k, "storm")
+        summary = engine_stats_summary(eng)
+    finally:
+        eng.shutdown()
+    free = res.pop("fault_free_ids")
+    same = bool(np.array_equal(stormy["ids"], free))
+    res["storm"] = {"seed": STORM_SEED,
+                    "events": [dict(step=e.step, action=e.action,
+                                    target=e.target, value=e.value)
+                               for e in storm.events],
+                    "fired": storm.fired, "done": storm.done(),
+                    "ids_equal_fault_free": same,
+                    "recall": recall_at(stormy["ids"], truth),
+                    "wall_s": stormy["wall_s"], "qps": stormy["qps"],
+                    "query_p99_s": stormy["query_p99_s"], **summary}
+    res["launches"] = launch_counts()
+    res["phase_s"] = time.perf_counter() - t_phase
+    st = res["storm"]
+    log(f"engine storm (seed {STORM_SEED}, {len(storm.fired)} of "
+        f"{len(storm.events)} events fired): ids equal to the fault-free "
+        f"run {same}, recall@10 {st['recall']:.4f}, {st['wall_s']:.2f} s, "
+        f"restarts {st['restarts']} redispatched {st['redispatched']} "
+        f"hedged {st['hedged_queries']}; launches {res['launches']}; phase "
+        f"{res['phase_s']:.1f} s")
+    if not same:
+        raise AssertionError("engine storm: ids differ from the fault-free "
+                             "run")
+    if abs(res["float32"]["recall"] - recall_single_host) > RECALL_SLACK:
+        raise AssertionError(
+            f"engine float32 recall@10 {res['float32']['recall']:.4f} not "
+            f"within {RECALL_SLACK} of search_single_host's "
+            f"{recall_single_host:.4f}")
+    if abs(st["recall"] - res["float32"]["recall"]) > RECALL_SLACK:
+        raise AssertionError("engine storm recall off the fault-free run")
+    if res["int8"]["recall"] < res["float32"]["recall"] - 0.01:
+        raise AssertionError("engine int8 recall@10 more than 0.01 below "
+                             "float32")
+    if res["launches"]["beam_search"] <= 0:
+        raise AssertionError(f"phase 7 never launched the beam kernel: "
+                             f"{res['launches']}")
+    del state["index"]
+    torch.cuda.empty_cache()
+    return res
+
+
 KERNELS = {
     "beam_search": ("cuda", "src/repro_torch/csrc/beam_search.cu",
                     "src/repro/kernels/beam_search/kernel.py:188"),
@@ -1078,6 +1401,8 @@ KERNELS = {
     "topk_distance": ("triton",
                       "src/repro_torch/kernels/topk_distance/ops.py",
                       "src/repro/kernels/topk_distance/kernel.py:99"),
+    "quant_distance": ("cuda", "src/repro_torch/csrc/quant_distance.cu",
+                       "src/repro/kernels/quant_distance/kernel.py:52"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:76"),
     "ssd": ("cuda", "src/repro_torch/csrc/ssd.cu",
@@ -1099,13 +1424,16 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     result = {"environment": environment()}
-    result["kernels"] = kernels_vs_plain(dev)
+    result["kernels"] = kernels_vs_plain(dev, args.n)
     result["small_index"] = small_index_agreement()
-    result["main_path"] = main_path(args.n, N_QUERIES, os.cpu_count() or 1)
+    result["main_path"], state = main_path(args.n, N_QUERIES,
+                                           os.cpu_count() or 1)
     result["lm_float32_check"] = lm_float32_check(dev, "qwen3-1.7b")
     result["lm_path"] = lm_path(dev, "qwen3-1.7b")
     result["ssm_float32_check"] = lm_float32_check(dev, "mamba2-780m")
     result["ssm_path"] = lm_path(dev, "mamba2-780m")
+    result["serving"] = serving_path(
+        state, result["main_path"]["float32"]["recall@10"])
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -1116,7 +1444,8 @@ def main() -> int:
             "name": name, "route": route, "source": source,
             "replaces": replaces,
             "launches": sum(result[phase]["launches"][name] for phase in
-                            ("main_path", "lm_path", "ssm_path")),
+                            ("main_path", "lm_path", "ssm_path",
+                             "serving")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

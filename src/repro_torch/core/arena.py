@@ -47,6 +47,9 @@ class ShardArena:
     scale = None
     zero = None
 
+    def __post_init__(self):
+        self._views: Dict[int, H.HNSWArrays] = {}
+
     @property
     def num_shards(self) -> int:
         return self.data.shape[0]
@@ -54,6 +57,36 @@ class ShardArena:
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    @property
+    def vector_nbytes(self) -> int:
+        """Bytes of the vector payload (what quantization compresses:
+        the rows, and the int8 grid's scale and zero)."""
+        return int(sum(t.nbytes for t in (self.data, self.scale, self.zero)
+                       if t is not None))
+
+    @property
+    def total_nbytes(self) -> int:
+        return int(sum(getattr(self, f.name).nbytes
+                       for f in dataclasses.fields(self)))
+
+    def shard(self, i: int) -> H.HNSWArrays:
+        """Uncached view of shard ``i``: its slices of the stacked
+        tensors (no copy), as the graph that ``hnsw_search`` walks."""
+        g = dict(data=self.data[i], ids=self.ids[i], bottom=self.bottom[i],
+                 upper=self.upper[i], entry=int(self.entry[i]),
+                 num_upper_levels=int(self.num_upper_levels[i]))
+        if self.scale is None:
+            return H.HNSWArrays(**g)
+        return H.QuantHNSWArrays(**g, scale=self.scale[i], zero=self.zero[i])
+
+    def shard_view(self, i: int) -> H.HNSWArrays:
+        """Memoised view of shard ``i``: every executor replica serving
+        the shard shares one set of device tensors, and the arena is
+        memoised per index, so an engine holds one device copy."""
+        if i not in self._views:
+            self._views[i] = self.shard(i)
+        return self._views[i]
 
     @classmethod
     def from_index(cls, index, device) -> "ShardArena":

@@ -37,6 +37,14 @@ def _library():
     return _lib
 
 
+def load_kernel() -> None:
+    """Build (if needed) and load ``csrc/beam_search.cu`` now, in the
+    calling thread; raises if nvcc or the load fails. A multi-threaded
+    caller (the serving engine) does this once before it starts threads
+    that would otherwise all wait on the first launch's build."""
+    _library()
+
+
 def _check(t: torch.Tensor, name: str, dtypes, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -20,15 +20,16 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor,
     return codes.to(torch.float32) * scale + zero
 
 
-def quant_scores(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-                 zero: torch.Tensor, *, metric: str) -> torch.Tensor:
+def quant_scores_ref(q: torch.Tensor, codes: torch.Tensor,
+                     scale: torch.Tensor, zero: torch.Tensor, *,
+                     metric: str) -> torch.Tensor:
     """q [B, d] f32 against codes [n, d] int8 -> [B, n] f32."""
     return M.similarity_matrix(q, dequantize(codes, scale, zero), metric)
 
 
 def quant_scores_np(q: np.ndarray, codes: np.ndarray, scale: np.ndarray,
                     zero: np.ndarray, *, metric: str) -> np.ndarray:
-    """Numpy twin of :func:`quant_scores`."""
+    """Numpy twin of :func:`quant_scores_ref`."""
     x_hat = (np.asarray(codes, np.float32) * np.asarray(scale, np.float32)
              + np.asarray(zero, np.float32))
     return M.similarity_matrix_np(np.asarray(q, np.float32), x_hat, metric)

@@ -7,21 +7,24 @@ distribution over the vocabulary, which is interpolated with the LM's
 (Khandelwal et al., kNN-LM: the paper's reference [10]). Keys are hidden
 states, values the observed next tokens.
 
-Lookups run through ``search_single_host`` on the index's device. The
-reference's other route, a ``PyramidClient`` session on the distributed
-serving engine (``DatastoreClient``, ``open_datastore_client``), waits
-for the serving engine's port (ROADMAP.md section 1, queue 2).
+Lookups run either single-host (``search_single_host`` on the index's
+device) or through the serving engine via a :class:`PyramidClient`
+session: ``open_datastore_client`` starts the engine and
+``knn_probs(..., client=...)`` sends one ``search_batch`` per lookup,
+resolved with ``gather_arrays``. Both paths share the index's one device
+arena.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.common.config import ArchConfig, PyramidConfig
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.core.client import PyramidClient, gather_arrays
 from repro_torch.core.distributed import search_single_host
 from repro_torch.core.meta_index import PyramidIndex, build_pyramid_index
 from repro_torch.models.transformer import forward
@@ -66,6 +69,39 @@ def hidden_states(params: dict, cfg: ArchConfig,
     return hid
 
 
+class DatastoreClient(PyramidClient):
+    """A :class:`PyramidClient` that owns its engine: a context manager
+    whose ``with`` block (or an explicit :meth:`shutdown`) stops the
+    engine's threads."""
+
+    def shutdown(self) -> None:
+        """Shut the owned engine down, then close the session."""
+        try:
+            self.engine.shutdown()
+        finally:
+            self.close()
+
+    def __exit__(self, *exc) -> None:
+        if not self._closed:   # idempotent: explicit shutdown() inside
+            self.shutdown()    # the with-block must not double-teardown
+
+
+def open_datastore_client(datastore: Datastore, *, replicas: int = 1,
+                          **engine_kw) -> DatastoreClient:
+    """Serve ``datastore.index`` through the serving engine, on the
+    index's device; the returned session feeds ``knn_probs(...,
+    client=...)``. The client owns the engine, so use it as a context
+    manager::
+
+        with open_datastore_client(ds) as client:
+            knn_probs(ds, q, k=8, vocab_size=V, client=client)
+
+    Engine kwargs pass through (``quantize=True`` serves the datastore
+    from the int8 arena, ``rerank_factor``, ``registry``, ``tracer``)."""
+    return DatastoreClient.from_index(datastore.index, replicas=replicas,
+                                      **engine_kw)
+
+
 def knn_vocab_probs(values: np.ndarray, ids: np.ndarray,
                     scores: np.ndarray, *, vocab_size: int,
                     temperature: float = 10.0) -> np.ndarray:
@@ -96,12 +132,27 @@ def knn_vocab_probs(values: np.ndarray, ids: np.ndarray,
 
 
 def knn_probs(datastore: Datastore, queries: np.ndarray, *, k: int,
-              vocab_size: int, temperature: float = 10.0) -> np.ndarray:
+              vocab_size: int, temperature: float = 10.0,
+              branching_factor: Optional[int] = None,
+              client: Optional[PyramidClient] = None,
+              timeout_s: float = 30.0) -> np.ndarray:
     """kNN next-token distribution per query. queries: [B, D] hidden
-    states. Returns [B, V] probabilities (host numpy); the search is
-    ``search_single_host`` on the datastore index's device."""
-    ids, scores, _ = search_single_host(
-        datastore.index, np.asarray(queries, np.float32), k=k)
+    states. Returns [B, V] probabilities (host numpy).
+
+    Without ``client`` the search is ``search_single_host`` on the
+    datastore index's device. With ``client`` it goes through the serving
+    engine's futures: one ``search_batch`` for the whole batch, resolved
+    by :func:`repro_torch.core.client.gather_arrays`; a lookup missing
+    ``timeout_s`` raises ``TimeoutError``."""
+    queries = np.asarray(queries, np.float32)
+    if client is not None:
+        futures = client.search_batch(queries, k,
+                                      branching_factor=branching_factor)
+        ids, scores = gather_arrays(futures, k, timeout_s)
+    else:
+        ids, scores, _ = search_single_host(
+            datastore.index, queries, k=k,
+            branching_factor=branching_factor)
     return knn_vocab_probs(datastore.values, ids, scores,
                            vocab_size=vocab_size, temperature=temperature)
 

@@ -1,7 +1,8 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the
 card. Marked ``cuda``: without a CUDA device every test here skips. Run
-them on a GPU machine with
-``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+them on a GPU machine with ``PYTHONPATH=src python -m pytest -q
+--noconftest -m cuda tests/test_torch_cuda.py`` (the suite's conftest
+imports jax, which these tests do not need).
 
 Tolerances: ids must be equal in at least 99.9% of positions (the kernel
 sums a dot product in another order than cuBLAS, which can swap two
@@ -12,13 +13,22 @@ The SSD scan agrees with its plain version on float32 copies of the same
 inputs to 1e-4 of the largest |y| (and of the largest |state|): both sum
 in float32, in another order, and the decays are exponentials of
 differences of float32 prefix sums that reach |cum| ~ 10^3 in a chunk.
+The int8 distance scan agrees with its plain version to rtol/atol 1e-5
+where it sums d <= 16 float32 products (both dequantize the same way and
+sum in another order); over several 32-wide slices of d it is held to
+1e-5 of the largest |score|, as in ``chip_smoke.py``, since two orders of
+a longer sum can part by more than 1e-5 at a score near zero. The
+serving engine on the card returns the ids of the same engine on the CPU
+in at least 99% of positions.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.common.config import PyramidConfig
 from repro_torch.core import distributed as TD
+from repro_torch.core.client import gather_arrays
 from repro_torch.core.meta_index import build_pyramid_index
 from repro_torch.data.synthetic import clustered_vectors, query_set
 from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -26,7 +36,11 @@ from repro_torch.kernels.beam_search import beam_search_cuda, beam_search_ref
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   flash_decode_cuda)
 from repro_torch.kernels.merge_topk import merge_topk_cuda, merge_topk_ref
+from repro_torch.kernels.quant_distance import (quant_scores,
+                                                quant_scores_cuda,
+                                                quant_scores_ref)
 from repro_torch.kernels.ssd import ssd_cuda, ssd_ref
+from repro_torch.serving.engine import ServingEngine
 from repro_torch.kernels.topk_distance import (topk_similarity_cuda,
                                                topk_similarity_ref)
 
@@ -103,6 +117,78 @@ def test_search_on_card_matches_cpu(cuda):
     rec = [np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i, truth)])
            for i in (ids, ids_cpu)]
     assert rec[0] >= 0.9 and abs(rec[0] - rec[1]) <= 0.02
+
+
+# (B, n, d): the reference kernel test's shapes, the ragged 37 x 53 and
+# shapes that are not multiples of the 64 x 64 tile or the 32-wide slice
+QUANT_SHAPES = [(5, 24, 8), (130, 70, 16), (1, 8, 4), (37, 53, 8),
+                (65, 129, 3), (1, 1, 1)]
+
+
+def _quant_case(cuda, b, n, d):
+    g = torch.Generator(device=cuda).manual_seed(b * n + d)
+    x = torch.randn(n, d, device=cuda, generator=g) * (
+        0.5 + 2.5 * torch.rand(1, d, device=cuda, generator=g))
+    q = torch.randn(b, d, device=cuda, generator=g)
+    lo, hi = x.amin(dim=0), x.amax(dim=0)
+    scale = torch.clamp((hi - lo) / 254.0, min=1e-12)
+    zero = (hi + lo) / 2.0
+    codes = torch.clamp(torch.round((x - zero) / scale), -127, 127).to(
+        torch.int8)
+    return q, codes, scale, zero
+
+
+@pytest.mark.parametrize("metric", ("l2", "ip", "angular"))
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=str)
+def test_quant_kernel_matches_plain(cuda, shape, metric):
+    q, codes, scale, zero = _quant_case(cuda, *shape)
+    before = quant_scores_cuda.launches
+    got = quant_scores(q, codes, scale, zero, metric=metric)
+    assert quant_scores_cuda.launches == before + 1
+    want = quant_scores_ref(q, codes, scale, zero, metric=metric)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        quant_scores_cuda(q, codes.float(), scale, zero, metric=metric)
+
+
+@pytest.mark.parametrize("metric", ("l2", "ip", "angular"))
+def test_quant_kernel_over_several_slices(cuda, metric):
+    q, codes, scale, zero = _quant_case(cuda, 70, 200, 130)
+    got = quant_scores_cuda(q, codes, scale, zero, metric=metric)
+    want = quant_scores_ref(q, codes, scale, zero, metric=metric)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    x = clustered_vectors(1500, 12, 12, seed=0)
+    q = query_set(x, 48, seed=11)
+    cfg = PyramidConfig(num_shards=4, meta_size=48, sample_size=800,
+                        branching_factor=2, max_degree=12,
+                        max_degree_upper=6, ef_construction=40,
+                        ef_search=50, kmeans_iters=6)
+    cpu = build_pyramid_index(x, cfg, device="cpu")
+    arrays = lambda g: {f: getattr(g, f)  # noqa: E731
+                        for f in convert.GRAPH_FIELDS}
+    card = convert.index_from_arrays(
+        cfg.__dict__, arrays(cpu.meta), cpu.part_of_center,
+        [arrays(g) for g in cpu.subs], device="cuda")
+    out = {}
+    for quantize in (False, True):
+        for name, index in (("cpu", cpu), ("cuda", card)):
+            reset_launch_counts()
+            eng = ServingEngine(index, replicas=2, quantize=quantize)
+            try:
+                out[name] = gather_arrays(eng.submit(q, k=10), 10, 30.0)
+            finally:
+                eng.shutdown()
+            assert (launch_counts()["beam_search"] > 0) == (name == "cuda")
+        # ids equal in 99% of positions, as phase 3 of chip_smoke.py holds
+        # the card's search to the CPU's: the walk's float32 sums run in
+        # another order, which can swap two near-tied candidates
+        same = out["cuda"][0] == out["cpu"][0]
+        assert same.mean() >= 0.99
+        np.testing.assert_allclose(out["cuda"][1][same], out["cpu"][1][same],
+                                   rtol=1e-5, atol=1e-4)
 
 
 # (B, S, H, KV, hd): G = 1, 2, 3 and 8; S not a multiple of any tile; the
@@ -263,9 +349,11 @@ def test_serve_entry_point_runs_on_card(cuda, arch, retrieval):
     from repro_torch.launch import serve
     reset_launch_counts()
     argv = ["--arch", arch, "--tokens", "4"]
-    gen = serve.main(argv + (["--retrieval"] if retrieval else []))
+    gen = serve.main(argv + (["--retrieval", "--quantize"] if retrieval
+                             else []))
     assert gen.shape == (2, 4) and ((gen >= 0) & (gen < 512)).all()
     counts = launch_counts()
     kernel, absent = (("ssd", "decode_attention") if arch == "mamba2-780m"
                       else ("decode_attention", "ssd"))
     assert counts[kernel] > 0 and counts[absent] == 0, counts
+    assert (counts["beam_search"] > 0) == retrieval, counts

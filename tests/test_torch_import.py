@@ -20,6 +20,7 @@ from repro_torch.core.meta_index import PyramidIndex, build_pyramid_index
 from repro_torch.launch import serve
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.batcher import ContinuousBatcher
+from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.retrieval import build_datastore
 
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -31,6 +32,12 @@ def test_every_module_imports_without_jax_or_reference():
     assert "repro_torch.launch.serve" in MODULES
     assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd.ops",
             "repro_torch.configs.mamba2_780m"} <= set(MODULES)
+    assert {"repro_torch.serving.engine", "repro_torch.serving.faults",
+            "repro_torch.serving.autoscaler", "repro_torch.core.client",
+            "repro_torch.common.utils", "repro_torch.obs.registry",
+            "repro_torch.obs.trace", "repro_torch.obs.stats_server",
+            "repro_torch.obs.logs",
+            "repro_torch.kernels.quant_distance.ops"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -65,6 +72,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     assert index.device.type == "cuda"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TD.search_single_host(index, x[:2], 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(index)
     lm = get_arch("qwen3-1.7b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(lm)

@@ -1,7 +1,8 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
 For each module that holds a Hopper kernel (``beam_search``,
-``merge_topk``, ``topk_distance``, ``decode_attention``, ``ssd``) the
+``merge_topk``, ``topk_distance``, ``quant_distance``,
+``decode_attention``, ``ssd``) the
 same numpy inputs go through the
 reference (its jnp oracle, its numpy twin, or its Pallas kernel in
 interpret mode) and through the port's dispatch, which on CPU tensors
@@ -33,7 +34,10 @@ from repro.kernels.beam_search import beam_search_ref as ref_beam
 from repro.kernels.beam_search.ops import _apply_filter as ref_apply_filter
 from repro.kernels.merge_topk import merge_topk_np as ref_merge_np
 from repro.kernels.merge_topk import merge_topk_ref as ref_merge
-from repro.kernels.quant_distance import quant_scores_ref
+from repro.kernels.quant_distance import quant_scores as ref_quant_dispatch
+from repro.kernels.quant_distance import quant_scores_np as ref_quant_np
+from repro.kernels.quant_distance import quant_scores_ref as ref_quant
+from repro.kernels.quant_distance.kernel import quant_distance_pallas
 from repro.kernels.ssd.kernel import ssd_pallas
 from repro.kernels.ssd.ref import ssd_ref as ref_ssd
 from repro.kernels.topk_distance import topk_similarity_ref as ref_topk
@@ -50,7 +54,10 @@ from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   flash_decode_cuda)
 from repro_torch.kernels.merge_topk import merge_topk, merge_topk_cuda
 from repro_torch.kernels.merge_topk import merge_topk_np
-from repro_torch.kernels.quant_distance import quant_scores
+from repro_torch.kernels.quant_distance import (quant_impl, quant_scores,
+                                                quant_scores_cuda,
+                                                quant_scores_np,
+                                                quant_scores_ref)
 from repro_torch.kernels.ssd import ssd_cuda, ssd_ref, ssd_scan
 from repro_torch.kernels.topk_distance import (topk_similarity,
                                                topk_similarity_cuda)
@@ -332,10 +339,50 @@ def test_similarity_and_quant_scores_match_reference(metric):
         quant_scores(torch.as_tensor(q), torch.as_tensor(codes),
                      torch.as_tensor(p.scale), torch.as_tensor(p.zero),
                      metric=metric).numpy(),
-        np.asarray(quant_scores_ref(jnp.asarray(q), jnp.asarray(codes),
-                                    jnp.asarray(p.scale),
-                                    jnp.asarray(p.zero), metric=metric)),
+        np.asarray(ref_quant(jnp.asarray(q), jnp.asarray(codes),
+                             jnp.asarray(p.scale), jnp.asarray(p.zero),
+                             metric=metric)),
         **_tol(metric))
+
+
+def _quant_case(b, n, d, seed):
+    """The reference kernel test's inputs (tests/test_kernel_quant_distance
+    .py): per-dimension scales of 0.5 to 3 on the rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32) * \
+        rng.uniform(0.5, 3.0, size=(1, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    params = QuantParams.from_data(x)
+    return q, params.quantize(x), params
+
+
+# the reference kernel test's shapes, with 37 x 53 (not a multiple of any
+# block) and B = 1
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b,n,d", [(5, 24, 8), (130, 70, 16), (1, 8, 4),
+                                   (37, 53, 8)])
+def test_quant_scores_match_reference(metric, b, n, d):
+    """The port's dispatch (its plain version on the CPU) against the
+    reference's dispatch, its Pallas kernel in interpret mode and its
+    numpy twin, to the family's rtol/atol 1e-5."""
+    q, codes, params = _quant_case(b, n, d, seed=b * n + d)
+    t = [torch.as_tensor(a) for a in (q, codes, params.scale, params.zero)]
+    got = quant_scores(*t, metric=metric).numpy()
+    assert got.shape == (b, n) and got.dtype == np.float32
+    j = [jnp.asarray(a) for a in (q, codes, params.scale, params.zero)]
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got, np.asarray(ref_quant_dispatch(*j, metric=metric)), **tol)
+    np.testing.assert_allclose(got, np.asarray(quant_distance_pallas(
+        *j, metric=metric, block_q=16, block_n=16, interpret=True)), **tol)
+    np.testing.assert_allclose(
+        got, ref_quant_np(q, codes, params.scale, params.zero,
+                          metric=metric), **tol)
+    np.testing.assert_array_equal(
+        quant_scores_np(q, codes, params.scale, params.zero, metric=metric),
+        ref_quant_np(q, codes, params.scale, params.zero, metric=metric))
+    np.testing.assert_array_equal(
+        got, quant_scores_ref(*t, metric=metric).numpy())
 
 
 def test_wrappers_take_only_cuda_tensors():
@@ -353,6 +400,10 @@ def test_wrappers_take_only_cuda_tensors():
     ssd_in = (torch.zeros(1, 5, 2, 4), torch.ones(1, 5, 2), -torch.ones(2),
               torch.zeros(1, 5, 8), torch.zeros(1, 5, 8))
     ssd_scan(*ssd_in, chunk=4)
+    quant_scores(torch.zeros(2, 4), torch.zeros(3, 4, dtype=torch.int8),
+                 torch.ones(4), torch.zeros(4), metric="l2")
+    assert quant_impl("cpu") == "torch-plain"
+    assert quant_impl("cuda") == "cuda-kernel"
     assert launch_counts() == before
     with pytest.raises(ValueError):
         beam_search_cuda(*t, metric="l2", ef=4, max_iters=10)
@@ -365,6 +416,10 @@ def test_wrappers_take_only_cuda_tensors():
         flash_decode_cuda(torch.zeros(2, 4, 16), kv, kv, pos)
     with pytest.raises(ValueError):
         ssd_cuda(*ssd_in, chunk=4)
+    with pytest.raises(ValueError):
+        quant_scores_cuda(torch.zeros(2, 4),
+                          torch.zeros(3, 4, dtype=torch.int8),
+                          torch.ones(4), torch.zeros(4), metric="l2")
 
 
 def _decode_case(b, s, h, kvh, hd, pos_mode, seed):

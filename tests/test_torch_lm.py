@@ -12,6 +12,7 @@ over a datastore built by the reference and carried across with
 version.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from repro_torch.common.registry import get_arch, list_archs
 from repro_torch.core import distributed as TD
 from repro_torch.kernels import launch_counts
 from repro_torch.launch import serve
+from repro_torch.obs import validate_chrome_trace
 from repro_torch.models import attention as TA
 from repro_torch.models import transformer as TT
 from repro_torch.serving import batcher as TB
@@ -301,6 +303,26 @@ def test_knn_probs_match_reference(model, datastores):
     assert (t_p.argmax(-1) == ref.values[::9]).mean() > 0.8
 
 
+@pytest.mark.parametrize("quantize", (False, True), ids=("f32", "int8"))
+def test_knn_probs_through_the_engine_equal_single_host(model, datastores,
+                                                         quantize):
+    """``knn_probs(client=...)`` (one ``search_batch`` through the serving
+    engine, resolved by ``gather_arrays``) gives what ``knn_probs()``
+    without a client gives, as the reference launcher's lookups do."""
+    cfg = model[2]
+    _, _, ours, queries = datastores
+    kw = dict(quantize=True, rerank_factor=4) if quantize else {}
+    want = TR.knn_probs(ours, queries, k=4, vocab_size=cfg.vocab_size)
+    with TR.open_datastore_client(ours, **kw) as client:
+        got = TR.knn_probs(ours, queries, k=4, vocab_size=cfg.vocab_size,
+                           client=client, timeout_s=30.0)
+        assert client.stats()["quantized"] == quantize
+    assert client._closed
+    if not quantize:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.9
+
+
 def test_knn_vocab_probs_and_interpolate_match_reference(model, datastores):
     cfg = model[2]
     _, ref, _, queries = datastores
@@ -345,6 +367,22 @@ def test_serve_entry_point_runs_on_cpu():
     assert gen.shape == (2, 4)
     assert ((gen >= 0) & (gen < 512)).all()
     assert launch_counts() == before        # plain versions on the CPU
-    with pytest.raises(SystemExit) as exc:
-        serve.main(["--quantize", "--device", "cpu"])
-    assert exc.value.code == 2
+    for argv in (["--tenant", "a"], ["--tenant-budget-mb", "64"]):
+        with pytest.raises(SystemExit) as exc:    # needs the tenancy slice
+            serve.main(argv + ["--device", "cpu"])
+        assert exc.value.code == 2
+
+
+def test_serve_engine_options_run_on_cpu(tmp_path):
+    """``--quantize``, ``--rerank-factor``, ``--trace-out`` and
+    ``--metrics-port`` run: the trace holds the engine's spans."""
+    trace = tmp_path / "trace.json"
+    gen = serve.main(["--tokens", "3", "--retrieval", "--quantize",
+                      "--rerank-factor", "2", "--trace-out", str(trace),
+                      "--metrics-port", "0", "--device", "cpu"])
+    assert gen.shape == (2, 3)
+    payload = json.loads(trace.read_text())
+    validate_chrome_trace(payload)
+    names = {e["name"] for e in payload["traceEvents"]}
+    assert {"serve.decode_step", "query", "executor.batch", "merge",
+            "rerank", "kernel.beam_walk"} <= names
