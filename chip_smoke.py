@@ -49,8 +49,9 @@ Phases, each raising on failure (the script then exits non-zero):
      every future resolves exactly once, the storm's ids equal the
      fault-free run's query by query, and recall@10 is held to phase 4's.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Full results also go to
+The line before the last is a JSON object with one entry per kernel (of
+its phase-2 rows with a library call, the slowest against it; else its
+first row); the last line is ``{"ok": true, "device": {...}}``. Full results also go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -265,6 +266,8 @@ def check_topk(dev, b: int, n: int, d: int, k: int, metric: str,
     out = compare(f"topk_distance k={k} {metric}", i_k, i_r, s_k, s_r)
     out["ms"] = cuda_ms(
         lambda: topk_similarity_cuda(q, x, k=k, metric=metric), 20)
+    out["kernel_device_ms"], _, out["stage_device_ms"] = device_kernels_of(
+        lambda: topk_similarity_cuda(q, x, k=k, metric=metric), 10, "topk_")
     out["plain_ms"] = cuda_ms(
         lambda: topk_similarity_ref(q, x, k=k, metric=metric), 5)
     xn = -(x * x).sum(dim=1)
@@ -351,11 +354,13 @@ def check_quant(dev, b: int, n: int, d: int, metric: str,
             "bytes": nbytes, "ops": ops, **bound(nbytes, ops)}
 
 
-def device_ms_of(fn, reps: int, name: str) -> float:
-    """Device time per call of the kernels whose name holds ``name``,
-    from ``torch.profiler`` over ``reps`` calls: the card's own time,
-    without the host's enqueue time that CUDA events over back-to-back
-    launches include when a launch is shorter than its enqueue."""
+def device_kernels_of(fn, reps: int, name: str):
+    """(device ms per call, CUDA kernels per call, {kernel: device ms per
+    call}) of the kernels whose name holds ``name``, from
+    ``torch.profiler`` over ``reps`` calls: the card's own time, without
+    the host's enqueue time that CUDA events over back-to-back launches
+    include when a launch is shorter than its enqueue. A kernel is named
+    by its function name, without namespace and template arguments."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -365,9 +370,16 @@ def device_ms_of(fn, reps: int, name: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    return us / 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    us = sum(e.self_device_time_total for e in events)
+    by_name = {}
+    for e in events:
+        m = re.search(r"(\w+)(?:<[^<>()]*>)?\(", e.key)
+        short = m.group(1) if m else e.key
+        by_name[short] = by_name.get(short, 0.0) + \
+            e.self_device_time_total / 1e3 / reps
+    return us / 1e3 / reps, sum(e.count for e in events) / reps, by_name
 
 
 def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
@@ -414,7 +426,7 @@ def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
 
     launch = rotate(lambda kk, vv: flash_decode_cuda(q, kk, vv, pos))
     ms = cuda_ms(launch, 100)
-    kernel_ms = device_ms_of(launch, 20, "flash_decode")
+    kernel_ms = device_kernels_of(launch, 20, "flash_decode")[0]
     plain_ms = cuda_ms(rotate(
         lambda kk, vv: decode_attention_ref(q, kk, vv, pos)), 5)
     library_ms = cuda_ms(rotate(
@@ -486,7 +498,9 @@ def check_ssd(dev, *, b: int = 1, s: int = 513, dtype: str = "bfloat16",
         xx, dd, bb = next(it)
         return ssd_cuda(xx, dd, a, bb[..., :n], bb[..., n:], chunk=chunk)
     ms = cuda_ms(launch, reps)
-    kernel_ms = device_ms_of(launch, max(3, reps // 2), "ssd_kernel")
+    # every stage's kernel is named ssd_kernel_*: the sum over the call
+    kernel_ms, per_call, stages = device_kernels_of(
+        launch, max(3, reps // 2), "ssd_kernel")
     plain_ms = cuda_ms(plain, 2)
     # the least the card must move: x, dt, a, B and C read once, y and the
     # state written once; the least operations of the chunked form: C B^T
@@ -503,11 +517,18 @@ def check_ssd(dev, *, b: int = 1, s: int = 513, dtype: str = "bfloat16",
     return {"shape": f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} {dtype}",
             "max_abs_err": err, "max_abs_err_state": err_state,
             "y_scale": y_scale, "state_scale": st_scale, "tolerance": SSD_TOL,
-            "ms": ms, "kernel_device_ms": kernel_ms, "plain_ms": plain_ms,
+            "ms": ms, "kernel_device_ms": kernel_ms,
+            "cuda_kernels_per_call": per_call, "stage_device_ms": stages,
+            "plain_ms": plain_ms,
             "library_ms": None, "bytes": nbytes, "ops": ops,
             "input_copies": copies,
             **bound(nbytes, ops, BF16_FLOPS if dtype == "bfloat16"
                     else FP32_FLOPS)}
+
+
+def fmt_ms(by_name: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1]))
 
 
 def kernels_vs_plain(dev, n: int) -> dict:
@@ -517,11 +538,16 @@ def kernels_vs_plain(dev, n: int) -> dict:
            "quant_distance": [], "decode_attention": [], "ssd": []}
     # the shard walk's shape (ef=100), then the filtered shard walk's
     # (ef = 100 x the inflation cap 8, n near the main path's largest
-    # shard) and the routing walk's over the meta-HNSW (1,000 centres)
+    # shard), the routing walk's over the meta-HNSW (1,000 centres) and an
+    # engine executor's batch
     beams = [dict(metric=m, quantized=qz) for qz in (False, True)
              for m in ("l2", "ip", "angular")]
     beams += [dict(metric="l2", quantized=False, n=16_384, c=512, ef=800),
-              dict(metric="l2", quantized=False, s=1, n=1000, c=1024, ef=64)]
+              dict(metric="l2", quantized=False, s=1, n=1000, c=1024, ef=64),
+              # phase 7's executor batch: 16 walks over one shard of N / 16
+              # rows
+              dict(metric="l2", quantized=False, s=1, n=n // 16, c=16,
+                   ef=100)]
     for kw in beams:
         r = check_beam(dev, **kw)
         res["beam_search"].append(r)
@@ -537,12 +563,22 @@ def kernels_vs_plain(dev, n: int) -> dict:
         log(f"merge_topk m={m} k={k}: ids equal {r['ids_equal']:.5f} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms "
             f"bound {r['bound_ms']:.5f} ms")
-    for k, metric in ((1, "l2"), (16, "ip")):
-        r = check_topk(dev, 4096, 1000, 128, k, metric)
+    # run K's two shapes, then the k-means assignments of phase 4's build
+    # (the 20,000-row sample against 1,000 centres) and of phases 5 and 6's
+    # datastores (400 sampled keys against 32 centres at qwen3-1.7b's and
+    # mamba2-780m's widths, DATASTORE_PYR)
+    for b, centres, d, k, metric in ((4096, 1000, 128, 1, "l2"),
+                                     (4096, 1000, 128, 16, "ip"),
+                                     (20_000, 1000, 128, 1, "l2"),
+                                     (400, 32, 2048, 1, "l2"),
+                                     (400, 32, 1536, 1, "l2")):
+        r = check_topk(dev, b, centres, d, k, metric)
         res["topk_distance"].append(r)
-        log(f"topk_distance k={k} {metric}: ids equal {r['ids_equal']:.5f} "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"library {r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms")
+        log(f"topk_distance {r['shape']} {metric}: ids equal "
+            f"{r['ids_equal']:.5f} kernel {r['ms']:.4f} ms (device "
+            f"{r['kernel_device_ms']:.4f} ms: {fmt_ms(r['stage_device_ms'])})"
+            f" plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+            f"bound {r['bound_ms']:.5f} ms")
     # the int8 scan: a brute-force scan of phase 4's whole quantized index,
     # the reference's roofline shape (benchmarks/roofline.py:208), and a
     # ragged shape
@@ -578,8 +614,11 @@ def kernels_vs_plain(dev, n: int) -> dict:
         log(f"ssd {r['shape']}: max err {r['max_abs_err']:.3g} (|y| <= "
             f"{r['y_scale']:.3g}; state {r['max_abs_err_state']:.3g} of "
             f"{r['state_scale']:.3g}) kernel {r['ms']:.4f} ms (device "
-            f"{r['kernel_device_ms']:.4f} ms) plain {r['plain_ms']:.3f} ms "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+            f"{r['kernel_device_ms']:.4f} ms in "
+            f"{r['cuda_kernels_per_call']:g} CUDA kernels: "
+            f"{fmt_ms(r['stage_device_ms'])}) plain "
+            f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
     return res
 
 
@@ -1398,8 +1437,7 @@ KERNELS = {
                     "src/repro/kernels/beam_search/kernel.py:188"),
     "merge_topk": ("triton", "src/repro_torch/kernels/merge_topk/ops.py",
                    "src/repro/kernels/merge_topk/kernel.py:51"),
-    "topk_distance": ("triton",
-                      "src/repro_torch/kernels/topk_distance/ops.py",
+    "topk_distance": ("cuda", "src/repro_torch/csrc/topk_distance.cu",
                       "src/repro/kernels/topk_distance/kernel.py:99"),
     "quant_distance": ("cuda", "src/repro_torch/csrc/quant_distance.cu",
                        "src/repro/kernels/quant_distance/kernel.py:52"),
@@ -1408,6 +1446,16 @@ KERNELS = {
     "ssd": ("cuda", "src/repro_torch/csrc/ssd.cu",
             "src/repro/kernels/ssd/kernel.py:85"),
 }
+
+
+def summary_row(rows: list) -> dict:
+    """A kernel's row for the summary line: of the rows with a library
+    call, the one slowest against it; for a kernel without one, its first
+    row (the main path's shape)."""
+    timed = [r for r in rows if r["library_ms"] is not None]
+    if not timed:
+        return rows[0]
+    return max(timed, key=lambda r: r["ms"] / r["library_ms"])
 
 
 def main() -> int:
@@ -1439,7 +1487,7 @@ def main() -> int:
 
     line = []
     for name, (route, source, replaces) in KERNELS.items():
-        first = result["kernels"][name][0]
+        first = summary_row(result["kernels"][name])
         line.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,

@@ -1,27 +1,30 @@
-"""Dispatch for the Mamba2 SSD chunk scan: the CUDA kernel for tensors on
+"""Dispatch for the Mamba2 SSD chunk scan: the CUDA kernels for tensors on
 the card (``ssd_cuda``, ``csrc/ssd.cu``), the plain PyTorch version
 (``ssd_ref``) for tensors on the CPU. Port of ``repro.kernels.ssd.ops``.
 
 Unlike the reference dispatch, a sequence shorter than one chunk is not
 sent to the plain version: the kernel takes any S >= 1, with one chunk
 of ``min(chunk, S)`` rows, as the plain version does.
+
+One call of ``ssd_cuda`` runs the chunked form in five CUDA kernels
+(prefix sums, C B^T once per chunk, chunk states, state passing,
+outputs; see ``csrc/ssd.cu``) and counts one launch. Their scratch, one
+float32 buffer, comes from PyTorch's caching allocator on the current
+stream.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-from repro_torch.common.device import sm_count
 from repro_torch.kernels.ssd.ref import ssd_ref
 
 MAX_P = 64        # head dim P
 MAX_N = 128       # state dim N
 MAX_CHUNK = 256   # chunk length Q
-# columns of P per block; the wrapper takes the widest whose blocks still
-# fill the card
-P_SLICES = (64, 32, 16)
 
 _lib = None
 
@@ -32,26 +35,25 @@ def _library():
         from repro_torch.kernels import cuda_lib
         lib = cuda_lib.load("ssd")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                   ll, ll, ll, ll, i, i, p]
+        lib.ssd_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                   i, ll, ll, ll, ll, i, p]
         lib.ssd_launch.restype = i
+        lib.ssd_scratch_floats.argtypes = [i, i, i, i, i, i]
+        lib.ssd_scratch_floats.restype = ll
         _lib = lib
     return _lib
 
 
-def p_slice(b: int, h: int, p: int, sms: int) -> int:
-    """Columns of P per block: the widest slice (64, 32, 16) that still
-    gives every SM a block, and 16 when none does."""
-    for ps in P_SLICES[:-1]:
-        if b * h * -(-p // ps) >= sms:
-            return ps
-    return P_SLICES[-1]
+@functools.lru_cache(maxsize=1024)
+def _scratch_floats(*shape: int) -> int:
+    """float32 scratch of one call at (B, S, H, P, N, Q)."""
+    return _library().ssd_scratch_floats(*shape)
 
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int,
              initial_state: Optional[torch.Tensor] = None):
-    """Launch ``csrc/ssd.cu``; same contract as :func:`ssd_ref`, all sums
+    """Run ``csrc/ssd.cu``; same contract as :func:`ssd_ref`, all sums
     in float32. x [B, S, H, P] float32 or bfloat16 (contiguous); dt
     [B, S, H] and a [H] float32 (contiguous); b_mat and c_mat [B, S, N]
     in x's dtype, each with a unit stride over N (read in place with
@@ -97,14 +99,15 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
     q = min(chunk, s)
+    scratch = torch.empty(_scratch_floats(bsz, s, h, p, n, q),
+                          dtype=torch.float32, device=dev)
     err = _library().ssd_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
         c_mat.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(),
+        y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
         bsz, s, h, p, n, q, b_mat.stride(0), b_mat.stride(1),
         c_mat.stride(0), c_mat.stride(1), int(x.dtype == torch.bfloat16),
-        p_slice(bsz, h, p, sm_count(dev)),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")

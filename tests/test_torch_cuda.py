@@ -263,14 +263,85 @@ def test_lm_batcher_on_card_matches_cpu(cuda):
     assert flash_decode_cuda.launches - before == cfg.num_layers * steps
 
 
+# B x n x d: one query (eight splits), the k-means sample of the index
+# build, a ragged n at a narrow d, the LM datastore's key width
+# (qwen3-1.7b's hidden size), run K's shape (four splits), and the LM
+# datastores' k-means (400 keys against 32 centres at qwen3-1.7b's and
+# mamba2-780m's widths; k is cut to n there)
+TOPK_SHAPES = [(1, 1000, 128), (20_000, 1000, 128), (512, 333, 8),
+               (256, 1000, 2048), (4096, 1000, 128), (400, 32, 2048),
+               (400, 32, 1536)]
+
+
+@pytest.mark.parametrize("metric", ("l2", "ip", "angular"))
+@pytest.mark.parametrize("k", (1, 16, 20, 256))
+@pytest.mark.parametrize("shape", TOPK_SHAPES, ids=str)
+def test_topk_kernel_matches_plain(cuda, shape, k, metric):
+    b, n, d = shape
+    k = min(k, n)
+    g = torch.Generator(device=cuda).manual_seed(b + n + d + k)
+    q = torch.randn(b, d, device=cuda, generator=g)
+    x = torch.randn(n, d, device=cuda, generator=g)
+    before = topk_similarity_cuda.launches
+    k_s, k_i = topk_similarity_cuda(q, x, k=k, metric=metric)
+    torch.cuda.synchronize()
+    assert topk_similarity_cuda.launches == before + 1
+    assert k_s.shape == k_i.shape == (b, k) and k_i.dtype == torch.int32
+    r_s, r_i = topk_similarity_ref(q, x, k=k, metric=metric)
+    _close(k_i, r_i, k_s, r_s)
+
+
+@pytest.mark.parametrize("k", (1, 16, 20, 256))
+@pytest.mark.parametrize("metric", ("l2", "ip"))
+def test_topk_kernel_ties_across_splits_go_to_the_lower_id(cuda, metric, k):
+    """Integer rows (exact scores, d = 13, which the wrapper pads to 16)
+    with copies of the best row on both sides of the tile boundaries
+    127 | 128 and 255 | 256; six queries give one query tile, so every
+    tile is a split of its own and the copies meet in the merge."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    lo = 1 if metric == "ip" else -4
+    q = torch.randint(lo, 5, (6, 13), device=cuda, generator=g).float()
+    x = torch.randint(lo, 5, (400, 13), device=cuda, generator=g).float()
+    best = torch.full((13,), 4.0, device=cuda) if metric == "ip" else q[0]
+    x[[127, 128, 255, 256]] = best
+    k_s, k_i = topk_similarity_cuda(q, x, k=k, metric=metric)
+    r_s, r_i = topk_similarity_ref(q, x, k=k, metric=metric)
+    assert k_i[0, :min(k, 4)].tolist() == [127, 128, 255, 256][:min(k, 4)]
+    assert torch.equal(k_i, r_i)
+    torch.testing.assert_close(k_s, r_s, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", (1, 16))
+@pytest.mark.parametrize("metric", ("l2", "ip"))
+def test_topk_kernel_ties_with_d_sliced_go_to_the_lower_id(cuda, metric, k):
+    """One database tile (n = 100) at d = 2,048, which the wrapper cuts
+    into slices of d: integer rows (exact dot products in every slice)
+    with copies of the best row at 3, 40 and 99."""
+    g = torch.Generator(device=cuda).manual_seed(k + 1)
+    lo = 1 if metric == "ip" else -4
+    q = torch.randint(lo, 5, (6, 2048), device=cuda, generator=g).float()
+    x = torch.randint(lo, 5, (100, 2048), device=cuda, generator=g).float()
+    best = torch.full((2048,), 4.0, device=cuda) if metric == "ip" else q[0]
+    x[[3, 40, 99]] = best
+    k_s, k_i = topk_similarity_cuda(q, x, k=k, metric=metric)
+    r_s, r_i = topk_similarity_ref(q, x, k=k, metric=metric)
+    assert k_i[0, :min(k, 3)].tolist() == [3, 40, 99][:min(k, 3)]
+    assert torch.equal(k_i, r_i)
+    torch.testing.assert_close(k_s, r_s, rtol=0, atol=0)
+
+
 # (B, S, H, P, N, chunk): the reference kernel test's shapes, aligned,
 # ragged (S not a multiple of the chunk or of the 64-row tile), S below
-# one chunk, and the full width (H 48, P 64, N 128, chunk 256)
+# one chunk, and the full width (H 48, P 64, N 128, chunk 256); then one
+# row, a chunk and one row, a batch of long prompts at full width, and a
+# narrow head (P 16, N 32)
 SSD_SHAPES = [(1, 64, 4, 8, 16, 16), (2, 96, 8, 16, 8, 32),
               (1, 128, 2, 8, 32, 64), (1, 50, 4, 8, 16, 16),
               (2, 33, 2, 8, 8, 32), (1, 16, 2, 4, 8, 16),
               (2, 300, 16, 16, 16, 32), (1, 100, 3, 5, 7, 256),
-              (1, 513, 48, 64, 128, 256), (2, 700, 4, 64, 128, 256)]
+              (1, 513, 48, 64, 128, 256), (2, 700, 4, 64, 128, 256),
+              (1, 1, 48, 64, 128, 256), (1, 257, 48, 64, 128, 256),
+              (4, 4096, 48, 64, 128, 256), (2, 300, 4, 16, 32, 64)]
 
 
 def _ssd_inputs(shape, dtype, cuda, initial):
