@@ -11,7 +11,8 @@ Phases, each raising on failure (the script then exits non-zero):
      Triton kernels compile at first launch);
   2. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, with their times from CUDA events, their bounds
-     and, where one exists, a PyTorch library call's time;
+     and, where one exists, a PyTorch library call's time (the beam walk
+     also with its time over the longest walk's expansions);
   3. a small index searched on the card and on the CPU (plain versions),
      float32, int8 and filtered: the answers must agree;
   4. the main path: ``build_pyramid_index_parallel`` on
@@ -19,8 +20,10 @@ Phases, each raising on failure (the script then exits non-zero):
      then ``search_single_host`` on float32, int8 (rerank factor 4) and a
      filtered batch, each answer checked (well formed, exact scores of
      the rows returned, only alive rows under the filter), with recall@10
-     against brute force, QPS, access rate, peak device memory and every
-     kernel's launch count; and a brute-force scan of the whole int8
+     against brute force, QPS, access rate, the shard-queue slots walked
+     against those routed, the beam kernel's device time a launch, peak
+     device memory and every kernel's launch count; and a brute-force
+     scan of the whole int8
      arena through ``quant_scores`` (the int8 distance kernel's entry
      point), held against its plain version on a slice of the queries;
   5. kNN-LM serving of qwen3-1.7b at full width (bf16, synthetic weights
@@ -47,7 +50,9 @@ Phases, each raising on failure (the script then exits non-zero):
      in float32 and in int8 (rerank factor 4), then a seeded
      ``FaultSchedule.storm`` under the Monitor with ``auto_restart``:
      every future resolves exactly once, the storm's ids equal the
-     fault-free run's query by query, and recall@10 is held to phase 4's.
+     fault-free run's query by query, and recall@10 is held to phase 4's;
+     the beam kernel's device time a launch is read from a profiled
+     float32 batch.
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -171,15 +176,35 @@ def environment() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_beam(dev, metric: str, quantized: bool, *, s: int = 16,
-               n: int = 65_536, c: int = 256, ef: int = 100,
-               seed: int = 0) -> dict:
-    """S graphs of n rows (16 x 65,536 is a 1M-row arena), d=128, M0=32,
-    C query slots each, on random -1-padded graphs."""
+def beam_rows(n: int) -> list:
+    """Phase 2's beam_search rows: the shard walk's shape (ef=100) under
+    each metric, float32 and int8; the filtered shard walk's (ef = 100 x
+    the inflation cap 8, n near the main path's largest shard); the
+    routing walk's over the meta-HNSW (1,000 centres); an engine
+    executor's batch (16 walks over one shard of n / 16 rows); and the
+    kNN-LM lookups' shard walks of phases 5 and 6 (DATASTORE_PYR: 4
+    shards of the 8,192-key qwen3-1.7b and 4,096-key mamba2-780m
+    datastores at their widths, M0 = 2 x max_degree, 8 slots, ef=60)."""
+    rows = [dict(metric=m, quantized=qz) for qz in (False, True)
+            for m in ("l2", "ip", "angular")]
+    return rows + [
+        dict(metric="l2", quantized=False, n=16_384, c=512, ef=800),
+        dict(metric="l2", quantized=False, s=1, n=1000, c=1024, ef=64),
+        dict(metric="l2", quantized=False, s=1, n=n // 16, c=16, ef=100),
+        dict(metric="l2", quantized=False, s=4, n=2048, d=2048, m0=24, c=8,
+             ef=60),
+        dict(metric="l2", quantized=False, s=4, n=1024, d=1536, m0=24, c=8,
+             ef=60)]
+
+
+def beam_inputs(dev, metric: str, quantized: bool, *, s: int = 16,
+                n: int = 65_536, d: int = 128, m0: int = 32, c: int = 256,
+                ef: int = 100, seed: int = 0):
+    """S graphs of n rows of width d (16 x 65,536 is a 1M-row arena),
+    M0 neighbour slots, C query slots each, on random -1-padded graphs:
+    (data, bottom, queries, entries, keyword arguments of the walk)."""
     import torch
-    from repro_torch.kernels.beam_search import (beam_search_cuda,
-                                                 beam_search_ref)
-    d, m0, max_iters = 128, 32, 400
+    max_iters = 400
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(s, n, d, device=dev, generator=g)
     bottom = torch.randint(0, n, (s, n, m0), device=dev, generator=g,
@@ -194,8 +219,21 @@ def check_beam(dev, metric: str, quantized: bool, *, s: int = 16,
         scale, zero = (hi - lo) / 254.0, (hi + lo) / 2.0
         x = torch.clamp(torch.round((x - zero) / scale), -127, 127).to(
             torch.int8)
-    kw = dict(metric=metric, ef=ef, max_iters=max_iters, scale=scale,
-              zero=zero)
+    return x, bottom, q, e, dict(metric=metric, ef=ef, max_iters=max_iters,
+                                 scale=scale, zero=zero)
+
+
+def check_beam(dev, metric: str, quantized: bool, *, s: int = 16,
+               n: int = 65_536, d: int = 128, m0: int = 32, c: int = 256,
+               ef: int = 100, seed: int = 0) -> dict:
+    """The walk of ``beam_inputs`` on the kernel against its plain
+    version; ``ms_per_expansion`` is the kernel's time over the longest
+    walk's expansions (the chain a launch cannot be shorter than)."""
+    import torch
+    from repro_torch.kernels.beam_search import (beam_search_cuda,
+                                                 beam_search_ref)
+    x, bottom, q, e, kw = beam_inputs(dev, metric, quantized, s=s, n=n, d=d,
+                                      m0=m0, c=c, ef=ef, seed=seed)
     s_k, i_k = beam_search_cuda(x, bottom, q, e, **kw)
     s_r, i_r, expansions, scored, rows, adj_rows = beam_search_ref(
         x, bottom, q, e, return_work=True, **kw)
@@ -204,6 +242,9 @@ def check_beam(dev, metric: str, quantized: bool, *, s: int = 16,
     out["ms"] = cuda_ms(lambda: beam_search_cuda(x, bottom, q, e, **kw), 3)
     out["plain_ms"] = cuda_ms(lambda: beam_search_ref(x, bottom, q, e, **kw),
                               1, warmup=0)
+    longest = int(expansions.max())
+    out["longest_walk_expansions"] = longest
+    out["ms_per_expansion"] = out["ms"] / max(1, longest)
     # the least the card must move: each distinct data row and adjacency
     # row of a graph read once (re-reads by other slots of that graph can
     # hit in L2), queries and entries in, beams out; the operations count
@@ -536,24 +577,14 @@ def kernels_vs_plain(dev, n: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"beam_search": [], "merge_topk": [], "topk_distance": [],
            "quant_distance": [], "decode_attention": [], "ssd": []}
-    # the shard walk's shape (ef=100), then the filtered shard walk's
-    # (ef = 100 x the inflation cap 8, n near the main path's largest
-    # shard), the routing walk's over the meta-HNSW (1,000 centres) and an
-    # engine executor's batch
-    beams = [dict(metric=m, quantized=qz) for qz in (False, True)
-             for m in ("l2", "ip", "angular")]
-    beams += [dict(metric="l2", quantized=False, n=16_384, c=512, ef=800),
-              dict(metric="l2", quantized=False, s=1, n=1000, c=1024, ef=64),
-              # phase 7's executor batch: 16 walks over one shard of N / 16
-              # rows
-              dict(metric="l2", quantized=False, s=1, n=n // 16, c=16,
-                   ef=100)]
-    for kw in beams:
+    for kw in beam_rows(n):
         r = check_beam(dev, **kw)
         res["beam_search"].append(r)
         log(f"beam_search {r['dtype']} {r['metric']} {r['shape']}: ids "
             f"equal {r['ids_equal']:.5f} max err {r['max_abs_err']:.3g} "
-            f"kernel {r['ms']:.3f} ms plain {r['plain_ms']:.1f} ms "
+            f"kernel {r['ms']:.3f} ms ({r['ms_per_expansion'] * 1e3:.2f} us "
+            f"an expansion of the longest walk, "
+            f"{r['longest_walk_expansions']}) plain {r['plain_ms']:.1f} ms "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     # the merges of a float32, an int8 (rerank factor 4) and a filtered
     # (inflation 8) batch: m = w * k_search over w = 16 shards
@@ -719,6 +750,10 @@ def gpu_truth(x, q, k, alive=None):
     return torch.topk(sims, k, dim=1).indices.cpu().numpy()
 
 
+# the beam walk's CUDA kernel, as the profiler names it
+BEAM_KERNEL_NAME = "beam_walk_kernel"
+
+
 def device_breakdown(fn, batch_s: float) -> dict:
     """Device time of one call under ``torch.profiler``: total kernel time,
     its share of the call's unprofiled wall time (the rest is the card
@@ -726,11 +761,14 @@ def device_breakdown(fn, batch_s: float) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts
     torch.cuda.synchronize()
+    before = launch_counts()["beam_search"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    beam_launches = launch_counts()["beam_search"] - before
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
@@ -739,10 +777,35 @@ def device_breakdown(fn, batch_s: float) -> dict:
     device_us = sum(t for _, t in per_kernel)
     if device_us == 0:
         log("profiler saw no device time")
+    beam_us = sum(t for key, t in per_kernel if BEAM_KERNEL_NAME in key)
     return {"device_ms": device_us / 1e3,
             "kernels_launched": sum(e.count for e in events),
             "busy_share": device_us / 1e6 / batch_s,
+            "beam_search_launches": beam_launches,
+            "beam_search_device_ms": beam_us / 1e3,
+            "beam_search_device_ms_per_launch":
+                beam_us / 1e3 / beam_launches if beam_launches else None,
             "top_kernels_ms": {k[:80]: t / 1e3 for k, t in per_kernel[:8]}}
+
+
+def counting_shard_walks(fn):
+    """Runs fn with the arena's shard-walk ``beam_search`` call wrapped:
+    returns fn's result and, summed over its calls, the slots handed to
+    the walk and those of them with an entry >= 0 (the walked ones)."""
+    import repro_torch.core.arena as arena
+    inner = arena.beam_search
+    seen = {"slots": 0, "walked": 0}
+
+    def counted(*args, **kw):
+        entries = args[3]
+        seen["slots"] += entries.numel()
+        seen["walked"] += int((entries >= 0).sum())
+        return inner(*args, **kw)
+    arena.beam_search = counted
+    try:
+        return fn(), seen
+    finally:
+        arena.beam_search = inner
 
 
 def main_path(n: int, n_queries: int, workers: int) -> dict:
@@ -786,8 +849,10 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
     for name, kw in runs.items():
         before = launch_counts()
         t0 = time.perf_counter()
-        ids, scores, mask = search_single_host(index, q, k, **kw)
+        (ids, scores, mask), slots = counting_shard_walks(
+            lambda: search_single_host(index, q, k, **kw))
         first_s = time.perf_counter() - t0
+        slots["routed"] = int(mask.sum())
         check_answer(name, ids, scores, x, q, k,
                      alive=(tags & 1) != 0 if name == "filtered" else None)
         reps = 3
@@ -802,6 +867,7 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
         res[name] = {"recall@10": rec, "qps": n_queries / dt,
                      "batch_s": dt, "first_call_s": first_s,
                      "access_rate": access_rate(torch.as_tensor(mask)),
+                     "walk_slots": slots,
                      "launches_per_batch": {
                          key: (after[key] - before[key]) // (reps + 1)
                          for key in after}}
@@ -810,7 +876,9 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
         log(f"search {name}: recall@10 {rec:.4f} QPS "
             f"{res[name]['qps']:.1f} ({dt * 1e3:.1f} ms / batch of "
             f"{n_queries}) access rate {res[name]['access_rate']:.4f} "
-            f"launches per batch {res[name]['launches_per_batch']} device "
+            f"shard walks: {slots['walked']} of {slots['slots']} slots "
+            f"walked, {slots['routed']} routed; launches per batch "
+            f"{res[name]['launches_per_batch']} device "
             f"{res[name]['device']}")
     res["int8_scan"] = int8_scan(index, q, k, truth)
     res["launches"] = launch_counts()

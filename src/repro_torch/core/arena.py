@@ -8,7 +8,9 @@ capacity-bounded walk -> dedup-top-k merge pipeline:
 
   * ``shard_search`` drains each shard's queue of routed queries, runs
     the batched greedy descent, then ONE ``beam_search`` call over every
-    (shard, slot) row (the CUDA kernel on the card);
+    (shard, slot) row (the CUDA kernel on the card); empty slots (the
+    dummy row B) neither descend nor walk (entry -1), where the
+    reference walks them from a clamped query and masks their output;
   * ``scatter_partials`` puts the per-shard partials back on query rows;
   * ``merge_topk`` (the Triton kernel on the card) dedups and keeps k.
 
@@ -189,10 +191,14 @@ def shard_search(arena: ShardArena, mask: torch.Tensor,
     scale = None if arena.scale is None else arena.scale[0]
     zero = None if arena.zero is None else arena.zero[0]
     graph = torch.arange(w, device=dev).repeat_interleave(capacity)
-    entries = H._greedy_descend(
+    # empty slots neither descend nor walk: entry -1
+    valid = slot_valid.reshape(-1)
+    entries = torch.full((w * capacity,), -1, dtype=torch.int64, device=dev)
+    entries[valid] = H._greedy_descend(
         arena.data, arena.upper, arena.entry, arena.num_upper_levels,
-        graph, qs.reshape(w * capacity, d), metric, scale=scale, zero=zero,
-        max_steps=64).reshape(w, capacity)
+        graph[valid], qs.reshape(w * capacity, d)[valid], metric,
+        scale=scale, zero=zero, max_steps=64)
+    entries = entries.reshape(w, capacity)
     fw = None
     if tag_words is not None and filter_words is not None:
         # the dummy row's zero words leave invalid slots unfiltered

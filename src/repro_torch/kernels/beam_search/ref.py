@@ -16,7 +16,10 @@ kernel in ``csrc/beam_search.cu``, the torch walk, the numpy twin):
   * the merged beam is a stable descending sort of (old beam, new
     neighbours in slot order): the old beam wins ties, and -0.0 == +0.0;
   * output is (scores [S, C, ef'], local node ids [S, C, ef']) best-first
-    with ef' = min(ef, n), padded with (-inf, -1).
+    with ef' = min(ef, n), padded with (-inf, -1);
+  * a slot whose entry is -1 (an empty slot of a shard's queue) is not
+    walked: its output is all (-inf, -1). The reference walks every slot
+    from a valid entry and has no such slot.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ def beam_search_ref(data: torch.Tensor, bottom: torch.Tensor,
       data: [S, n, d] rows, float32 or int8 codes (with ``scale``/``zero``).
       bottom: [S, n, M0] int bottom-layer adjacency, -1 padded.
       queries: [S, C, d] float32 preprocessed queries.
-      entries: [S, C] int bottom-layer entry node per slot.
+      entries: [S, C] int bottom-layer entry node per slot, -1 for a slot
+        not to walk.
 
     Returns (scores [S, C, ef'] f32, nodes [S, C, ef'] i32); with
     ``return_work`` also the work this input needs (what a roofline bound
@@ -75,19 +79,22 @@ def beam_search_ref(data: torch.Tensor, bottom: torch.Tensor,
     rows_idx = torch.arange(bsz, device=dev)
     off = (rows_idx // c) * n
 
+    walked = ent >= 0
+    ent0 = ent.clamp(min=0)
     visited = torch.zeros((bsz, n), dtype=torch.bool, device=dev)
-    visited[rows_idx, ent] = True
+    visited[rows_idx, ent0] = walked
     beam_i = torch.full((bsz, ef), -1, dtype=torch.long, device=dev)
     beam_i[:, 0] = ent
     beam_s = torch.full((bsz, ef), -torch.inf, dtype=torch.float32,
                         device=dev)
-    beam_s[:, 0] = score_rows(q, data_f[ent + off][:, None, :], metric,
-                               scale, zero)[:, 0]
+    beam_s[:, 0] = torch.where(walked, score_rows(
+        q, data_f[ent0 + off][:, None, :], metric, scale, zero)[:, 0],
+        -torch.inf)
     expanded = torch.zeros((bsz, ef), dtype=torch.bool, device=dev)
     cols = torch.arange(ef, device=dev)[None, :]
     no_new = torch.zeros((bsz, m0), dtype=torch.bool, device=dev)
     expansions = torch.zeros(bsz, dtype=torch.long, device=dev)
-    scored = torch.ones(bsz, dtype=torch.long, device=dev)   # the entry
+    scored = walked.long()                                  # the entry
     opened = torch.zeros((bsz, n), dtype=torch.bool, device=dev) \
         if return_work else None                # nodes whose row was read
 
@@ -162,6 +169,8 @@ def beam_search_np(data: np.ndarray, bottom: np.ndarray,
                     metric)[0]
 
             e = int(entries[si, ci])
+            if e < 0:        # an empty slot: not walked
+                continue
             visited = np.zeros(n, bool)
             visited[e] = True
             beam_s = np.full(ef, -np.inf, np.float32)

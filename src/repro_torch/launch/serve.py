@@ -42,7 +42,8 @@ log = get_logger(__name__)
 
 # options of the reference launcher that need the tenancy manager
 # (``TenantManager`` needs ``Brokers`` of ``core/api.py``, whose index
-# loading needs the store; ROADMAP.md section 1, queue 3: serving)
+# loading needs the store; ROADMAP.md section 1, "The paper's API and
+# tenancy")
 NOT_PORTED = ("tenant", "tenant_budget_mb")
 
 
@@ -75,7 +76,8 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
                     help="torch device (default cuda; 'cpu' runs the "
                          "plain PyTorch versions of the kernels)")
     not_ported = ("not yet ported: it needs the tenancy manager "
-                  "(ROADMAP.md section 1, queue 3: serving)")
+                  "(ROADMAP.md section 1, \"The paper's API and "
+                  "tenancy\")")
     ap.add_argument("--tenant", metavar="NAME", help=not_ported)
     ap.add_argument("--tenant-budget-mb", type=float, help=not_ported)
     args = ap.parse_args(argv)

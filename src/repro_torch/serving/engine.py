@@ -770,12 +770,12 @@ class ServingEngine:
                    ) -> "ServingEngine":
         """Recover an engine from a published index store (the
         reference's ``repro.store.IndexStore``). The store is not ported
-        yet: it is the store-and-maintenance slice of ROADMAP.md
-        (section 1, queue 4)."""
+        yet: it is the slice "Online updates and the index store" of
+        ROADMAP.md, section 1."""
         raise NotImplementedError(
             "ServingEngine.from_store needs the index store, which is not "
-            "ported yet (ROADMAP.md section 1, queue 4: store and "
-            "maintenance)")
+            "ported yet (ROADMAP.md section 1, \"Online updates and the "
+            "index store\")")
 
     def _spawn(self, shard: int, replica: int) -> Executor:
         name = f"exec-s{shard}-r{replica}"

@@ -84,6 +84,99 @@ def test_beam_kernel_matches_plain(cuda, metric, quantized):
     _close(i_k, i_r, s_k, s_r)
 
 
+def _beam_case(dev, s, n, d, m0, c, *, quantized=False, seed=0,
+               grid=False):
+    """Random -1-padded graphs of s x n rows: normal rows, or integer
+    rows (exact scores) where ``grid``; int8 codes on a fixed grid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if grid:
+        x = torch.randint(-2, 3, (s, n, d), device=dev, generator=g).float()
+        q = torch.randint(-2, 3, (s, c, d), device=dev, generator=g).float()
+    else:
+        x = torch.randn(s, n, d, device=dev, generator=g)
+        q = torch.randn(s, c, d, device=dev, generator=g)
+    bottom = torch.randint(-1, n, (s, n, m0), device=dev, generator=g,
+                           dtype=torch.int32)
+    e = torch.randint(0, n, (s, c), device=dev, generator=g,
+                      dtype=torch.int32)
+    scale = zero = None
+    if quantized:
+        scale = torch.full((d,), 0.03, device=dev)
+        zero = torch.zeros(d, device=dev)
+        x = torch.clamp(torch.round(x / 0.03), -127, 127).to(torch.int8)
+    return x, bottom, q, e, dict(scale=scale, zero=zero)
+
+
+# (S, n, d, M0, C, ef, int8, metric): ef = 800; n on both sides of the
+# shared visited bitmask's limit (786,432 nodes); M0 of 16, 32 and 48;
+# d of 13 (scalar copies), 128, 1,536 and 2,048 (every row at once for
+# at most one walk an SM, in slices of d for 256 walks); C of 1, 8, 16,
+# 128 and 4,096 (four warps a walk, one at 4,096)
+BEAM_SHAPES = (
+    (4, 2048, 128, 32, 64, 800, False, "l2"),
+    (2, 4096, 128, 32, 128, 800, True, "ip"),
+    (1, 786_432, 16, 16, 8, 64, False, "l2"),
+    (1, 786_433, 16, 16, 8, 64, False, "ip"),
+    (2, 1000, 64, 16, 16, 100, False, "angular"),
+    (2, 1000, 64, 48, 16, 100, True, "l2"),
+    (1, 3000, 13, 32, 16, 50, False, "l2"),
+    (1, 3000, 13, 32, 16, 50, True, "ip"),
+    (1, 2000, 1536, 24, 8, 60, False, "l2"),
+    (1, 2000, 2048, 24, 8, 60, False, "ip"),
+    (1, 2000, 2048, 48, 1, 60, True, "angular"),
+    (2, 2000, 2048, 24, 128, 60, False, "l2"),
+    (1, 8192, 128, 32, 4096, 100, False, "l2"),
+)
+
+
+@pytest.mark.parametrize("shape", BEAM_SHAPES, ids=str)
+def test_beam_kernel_shapes_match_plain(cuda, shape):
+    s, n, d, m0, c, ef, quantized, metric = shape
+    x, bottom, q, e, qz = _beam_case(cuda, s, n, d, m0, c,
+                                     quantized=quantized, seed=n + d)
+    kw = dict(metric=metric, ef=ef, max_iters=400, **qz)
+    s_k, i_k = beam_search_cuda(x, bottom, q, e, **kw)
+    s_r, i_r = beam_search_ref(x, bottom, q, e, **kw)
+    torch.cuda.synchronize()
+    _close(i_k, i_r, s_k, s_r)
+    assert torch.equal(i_k < 0, torch.isneginf(s_k))
+
+
+@pytest.mark.parametrize("c", (1, 16, 512))
+def test_beam_kernel_skips_empty_slots(cuda, c):
+    """Entry -1 slots return (-inf, -1) without walking; the other slots
+    answer as they do alone."""
+    x, bottom, q, e, _ = _beam_case(cuda, 2, 3000, 128, 32, c, seed=c)
+    e[:, ::3] = -1
+    kw = dict(metric="l2", ef=100, max_iters=400)
+    s_k, i_k = beam_search_cuda(x, bottom, q, e, **kw)
+    s_r, i_r = beam_search_ref(x, bottom, q, e, **kw)
+    torch.cuda.synchronize()
+    assert (i_k[:, ::3] == -1).all() and torch.isneginf(s_k[:, ::3]).all()
+    _close(i_k, i_r, s_k, s_r)
+
+
+@pytest.mark.parametrize("quantized", (False, True), ids=("f32", "int8"))
+@pytest.mark.parametrize("c", (8, 4096))
+def test_beam_kernel_ties_on_duplicate_rows(cuda, c, quantized):
+    """Integer rows, each stored four times, and integer queries: every
+    score is exact and ties four ways at least; the kernel keeps the
+    plain version's order (the old beam first, then slot order)."""
+    x, bottom, q, e, qz = _beam_case(cuda, 1, 2048, 32, 32, c, grid=True,
+                                     seed=c)
+    x = x[:, :512].repeat(1, 4, 1)
+    if quantized:
+        qz = dict(scale=torch.ones(32, device=cuda),
+                  zero=torch.zeros(32, device=cuda))
+        x = x.to(torch.int8)
+    kw = dict(metric="l2", ef=64, max_iters=200, **qz)
+    s_k, i_k = beam_search_cuda(x, bottom, q, e, **kw)
+    s_r, i_r = beam_search_ref(x, bottom, q, e, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_r)
+    assert torch.equal(s_k, s_r)
+
+
 def test_merge_and_topk_kernels_match_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     sc = torch.randn(256, 640, device=cuda, generator=g)

@@ -1,5 +1,5 @@
-"""The decompositions of the port's two redesigned CUDA kernels, mirrored
-in plain PyTorch and held against the JAX package on the CPU.
+"""The decompositions of the port's redesigned CUDA kernels, mirrored
+in plain PyTorch or numpy and held against the JAX package on the CPU.
 
 ``ssd_staged_ref`` runs the five stages of ``csrc/ssd.cu`` (prefix sums,
 C B^T once per chunk, chunk states [N, P], state passing, outputs
@@ -11,13 +11,23 @@ at k = 1; for 1 < k <= 32 the tile's candidates first cut at the k-th
 best of the 32 lanes' maxima),
 and the splits' partial lists merged with ties to the lowest id;
 ``topk_similarity_sliced_ref`` its cut of d for a database of one tile
-(dot products of slices of d added in slice order, then the top k). All
-are test-only mirrors of the kernels' algorithms, not used by the port.
+(dot products of slices of d added in slice order, then the top k);
+``beam_search_staged_ref`` the walk of ``csrc/beam_search.cu``: rows
+scored in the staging passes of ``walk_plan`` (rows a pass, slices of d
+added in slice order), the new candidates cut at the beam's ef-th score,
+sorted on (score desc, slot asc) in batches of 32, inserted in place with
+the beam first on ties, the next expansion found from a pointer below
+which every entry is expanded, and entry -1 slots left unwalked. All are
+test-only mirrors of the kernels' algorithms, not used by the port.
 
 Tolerances: the SSD stages agree with the reference to rtol = atol =
 1e-5 (float32 sums in another order; decays as differences of prefix
 sums); the top-k ids are equal and the scores agree to rtol = atol =
 1e-5 (l2 to atol 1e-4, for the cancellation in 2 q.x - |q|^2 - |x|^2).
+The staged walk's ids equal the reference's (normal rows do not tie;
+integer rows tie exactly, and are held against the numpy twin, which
+breaks ties as the kernel does, -0.0 == +0.0), its scores to the same
+tolerances.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +35,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro.core.quant import QuantParams
+from repro.kernels.beam_search import beam_search_np as ref_beam_np
+from repro.kernels.beam_search import beam_search_ref as ref_beam
 from repro.kernels.ssd.ref import ssd_ref as ref_ssd
 from repro.kernels.topk_distance import topk_similarity_ref as ref_topk
+from repro_torch.kernels.beam_search import beam_search
+from repro_torch.kernels.beam_search.ops import (MAX_M0, SMEM_MAX_BYTES,
+                                                 WalkPlan, layout_bytes,
+                                                 resident_blocks, walk_plan)
 from repro_torch.kernels.topk_distance.ops import (TILE, slice_plan,
                                                    split_plan)
 from repro_torch.kernels.topk_distance.ref import similarities
@@ -305,3 +322,308 @@ def test_topk_sliced_d_ties_go_to_the_lower_id(metric, k):
     np.testing.assert_array_equal(i.numpy(), r_i)
     np.testing.assert_allclose(s.numpy(), np.asarray(r_s),
                                **_topk_tol(metric))
+
+
+# ---------------------------------------------------------------------------
+# the beam walk
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+def beam_search_staged_ref(data, bottom, queries, entries, *, metric, ef,
+                           max_iters, scale=None, zero=None, plan=None):
+    """The walk of ``csrc/beam_search.cu``, one (graph, slot) row at a
+    time in float32 numpy, under the block layout ``plan`` (by default
+    ``walk_plan``'s for these shapes on an H100). Returns (scores [S, C,
+    ef'], nodes [S, C, ef'] int32), (-inf, -1) padded."""
+    data, bottom = np.asarray(data), np.asarray(bottom)
+    queries, entries = np.asarray(queries, np.float32), np.asarray(entries)
+    s, n, d = data.shape
+    m0, c = bottom.shape[2], queries.shape[1]
+    efp = min(ef, n)
+    if plan is None:
+        plan = walk_plan(s * c, n, d, efp, m0, scale is not None, H100_SMS)
+    out_s = np.full((s, c, efp), -np.inf, np.float32)
+    out_i = np.full((s, c, efp), -1, np.int32)
+    for g in range(s):
+        for slot in range(c):
+            entry = int(entries[g, slot])
+            if entry < 0:                       # an empty slot: not walked
+                continue
+            q = queries[g, slot]
+            qn = np.float32(np.dot(q, q))
+
+            def score(nodes):
+                # staging passes: stage_rows rows x slice_cols columns,
+                # the slices' partial sums added in slice order
+                dot = np.zeros(len(nodes), np.float32)
+                nrm = np.zeros(len(nodes), np.float32)
+                for r0 in range(0, len(nodes), plan.stage_rows):
+                    rows = nodes[r0:r0 + plan.stage_rows]
+                    cut = slice(r0, r0 + len(rows))
+                    for c0 in range(0, d, plan.slice_cols):
+                        cols = slice(c0, c0 + plan.slice_cols)
+                        x = data[g, rows, cols].astype(np.float32)
+                        if scale is not None:
+                            x = x * scale[cols] + zero[cols]
+                        dot[cut] += x @ q[cols]
+                        nrm[cut] += np.sum(x * x, axis=1)
+                if metric == "l2":
+                    return (np.float32(2.0) * dot - qn) - nrm
+                if metric == "ip":
+                    return dot
+                return dot / ((np.sqrt(qn) + np.float32(1e-12))
+                              * (np.sqrt(nrm) + np.float32(1e-12)))
+
+            bs = np.full(efp, -np.inf, np.float32)
+            bi = np.full(efp, -1, np.int32)
+            be = np.zeros(efp, bool)
+            vis = np.zeros(n, bool)
+            vis[entry] = True
+            bs[0], bi[0] = score(np.asarray([entry]))[0], entry
+            cnt, ptr = 1, 0         # live entries; all below ptr expanded
+            for _ in range(max_iters):
+                live = np.flatnonzero(~be[ptr:cnt])
+                if live.size == 0:
+                    break
+                sel = ptr + int(live[0])
+                be[sel] = True
+                ptr = sel + 1
+                nbrs = bottom[g, bi[sel]]
+                real = nbrs[nbrs >= 0]
+                fresh = real[~vis[real]]        # tested before the marks
+                vis[real] = True
+                if fresh.size == 0:
+                    continue
+                sims = score(fresh)
+                for b0 in range(0, fresh.size, 32):
+                    full = cnt == efp
+                    batch = range(b0, min(b0 + 32, fresh.size))
+                    surv = [j for j in batch
+                            if not full or sims[j] > bs[efp - 1]]
+                    if not surv:
+                        continue
+                    order = sorted(surv, key=lambda j: (-sims[j], j))
+                    new_s = sims[order]
+                    # a survivor lands at its rank + #(beam >= its score)
+                    pos = [t + int(np.count_nonzero(bs[:cnt] >= v))
+                           for t, v in enumerate(new_s)]
+                    # entries behind the first insertion point move from
+                    # the back, each by the survivors that beat it
+                    for i in range(cnt - 1, pos[0] - 1, -1):
+                        dst = i + int(np.count_nonzero(new_s > bs[i]))
+                        if dst < efp:
+                            bs[dst], bi[dst], be[dst] = bs[i], bi[i], be[i]
+                    for t, j in enumerate(order):
+                        if pos[t] < efp:
+                            bs[pos[t]], bi[pos[t]] = sims[j], fresh[j]
+                            be[pos[t]] = False
+                    cnt = min(efp, cnt + len(order))
+                    ptr = min(ptr, pos[0])
+            out_s[g, slot], out_i[g, slot] = bs, bi
+    return out_s, out_i
+
+
+def test_walk_plan_fills_the_card():
+    """On 132 SMs: four warps a walk for an engine batch of 16 and for 528
+    walks, two for the routing walk's 1,024, one for 2,112 (more warps
+    would hold fewer walks an SM), two for 4,096 float32 walks over
+    65,536-row graphs (shared memory holds 8 an SM either way), one for
+    int8 rows; every row of an expansion staged at once at d = 128 (M0 =
+    32 float32 rows are 16 KB), a quarter of them a pass for ef = 800;
+    at the kNN-LM widths every row at once where there are no more walks
+    than SMs, else slices of d in two buffers; the visited bitmask in
+    shared memory up to n = 786,432."""
+    assert walk_plan(16, 3125, 128, 100, 32, False, 132) == WalkPlan(
+        4, 32, 128, 1, True, layout_bytes(128, 100, 32, 98, True, False, 32,
+                                          128, 1))
+    assert walk_plan(528, 1000, 128, 64, 32, False, 132).warps == 4
+    assert walk_plan(1024, 1000, 128, 64, 32, False, 132).warps == 2
+    assert walk_plan(2112, 1000, 128, 64, 32, False, 132).warps == 1
+    assert walk_plan(4096, 65_536, 128, 100, 32, True, 132).warps == 1
+    plan = walk_plan(4096, 65_536, 128, 100, 32, False, 132)
+    assert plan.warps == 2 and resident_blocks(plan.smem_bytes, 1) == 8
+    plan = walk_plan(8192, 16_384, 128, 800, 32, False, 132)
+    assert (plan.warps, plan.stage_rows, plan.stage_buffers) == (1, 8, 1)
+    plan = walk_plan(8, 2386, 2048, 60, 24, False, 132)
+    assert (plan.stage_rows, plan.slice_cols, plan.stage_buffers) == (
+        24, 2048, 1)
+    assert plan.smem_bytes == layout_bytes(2048, 60, 24, 75, True, False,
+                                           24, 2048, 1)
+    plan = walk_plan(133, 2386, 2048, 60, 24, False, 132)
+    assert (plan.stage_rows, plan.slice_cols, plan.stage_buffers) == (
+        24, 320, 2)
+    assert plan.smem_bytes == layout_bytes(2048, 60, 24, 75, True, False,
+                                           24, 320, 2)
+    assert walk_plan(32, 1024, 1536, 60, 24, False, 132).slice_cols == 1536
+    assert walk_plan(256, 2000, 1536, 60, 24, False, 132).slice_cols == 320
+    assert walk_plan(256, 2000, 2048, 60, 24, True, 132).slice_cols == 1344
+    # 32 float32 rows of d = 2,048 (256 KB) fit no block: slices
+    assert walk_plan(8, 2000, 2048, 60, 32, False, 132).slice_cols == 512
+    assert walk_plan(1, 786_432, 16, 64, 16, False, 132).vis_shared
+    assert not walk_plan(1, 786_433, 16, 64, 16, False, 132).vis_shared
+    with pytest.raises(ValueError, match="M0"):
+        walk_plan(1, 100, 16, 10, MAX_M0 + 1, False, 132)
+
+
+def test_walk_plan_shrinks_staging_to_fit():
+    """A beam of 20,000 entries and an 8,000-node bitmask leave too little
+    room for 32 rows of d = 4,096: slices, then rows, are halved until the
+    block fits."""
+    plan = walk_plan(64, 256_000, 4096, 20_000, 32, False, 132)
+    assert plan.smem_bytes <= SMEM_MAX_BYTES
+    assert plan.slice_cols % 64 == 0 and plan.slice_cols < 4096
+    for walks, n, d, efp, m0, qz in ((1, 10, 13, 10, 4, False),
+                                     (4096, 65_536, 128, 800, 48, True),
+                                     (8, 500_000, 2048, 800, 64, False)):
+        p = walk_plan(walks, n, d, efp, m0, qz, 132)
+        assert p.smem_bytes <= SMEM_MAX_BYTES
+        assert p.slice_cols == d or p.slice_cols % 64 == 0
+        assert 1 <= p.stage_rows <= m0
+
+
+def _walk_case(s, n, d, c, m0, seed, quantized=False, grid=False):
+    rng = np.random.default_rng(seed)
+    if grid:
+        x = rng.integers(-8, 9, size=(s, n, d)).astype(np.float32)
+        q = rng.integers(-8, 9, size=(s, c, d)).astype(np.float32)
+    else:
+        x = rng.normal(size=(s, n, d)).astype(np.float32)
+        q = rng.normal(size=(s, c, d)).astype(np.float32)
+    bottom = rng.integers(-1, n, size=(s, n, m0)).astype(np.int32)
+    entries = rng.integers(0, n, size=(s, c)).astype(np.int32)
+    scale = zero = None
+    if quantized:
+        params = QuantParams.from_data(x.reshape(s * n, d))
+        x = np.stack([params.quantize(x[i]) for i in range(s)])
+        scale, zero = params.scale, params.zero
+    return x, bottom, q, entries, scale, zero
+
+
+def _against_reference(case, plan=None, **kw):
+    x, b, q, e, sc, zr = case
+    s_m, i_m = beam_search_staged_ref(x, b, q, e, scale=sc, zero=zr,
+                                      plan=plan, **kw)
+    j = jnp.asarray
+    sz = {} if sc is None else dict(scale=j(sc), zero=j(zr))
+    s_r, i_r = ref_beam(j(x), j(b), j(q), j(e), **kw, **sz)
+    np.testing.assert_array_equal(i_m, np.asarray(i_r))
+    np.testing.assert_allclose(s_m, np.asarray(s_r), **_topk_tol(kw["metric"]))
+    return s_m, i_m
+
+
+def _against_numpy_twin(case, **kw):
+    x, b, q, e, sc, zr = case
+    s_m, i_m = beam_search_staged_ref(x, b, q, e, scale=sc, zero=zr, **kw)
+    s_n, i_n = ref_beam_np(x, b, q, e, scale=sc, zero=zr, **kw)
+    np.testing.assert_array_equal(i_m, i_n)
+    np.testing.assert_allclose(s_m, s_n, **_topk_tol(kw["metric"]))
+    return s_m, i_m
+
+
+@pytest.mark.parametrize("plan", (None, (1, 2, 16), (4, 3, 8)),
+                         ids=("walk_plan", "rows2_cols16", "rows3_cols8"))
+@pytest.mark.parametrize("quantized", (False, True), ids=("f32", "int8"))
+@pytest.mark.parametrize("metric", ("l2", "ip", "angular"))
+def test_staged_walk_matches_reference(metric, quantized, plan):
+    """Random rows, d = 40 (a ragged last slice under the small plans)."""
+    case = _walk_case(2, 80, 40, 5, 6, seed=3, quantized=quantized)
+    if plan is not None:
+        plan = WalkPlan(plan[0], plan[1], plan[2], 2, True, 0)
+    _against_reference(case, plan, metric=metric, ef=12, max_iters=400)
+
+
+@pytest.mark.parametrize("walks,cols", ((3, 2048), (4 * H100_SMS, 1024)))
+def test_staged_walk_at_the_kv_width(walks, cols):
+    """d = 2,048, the qwen3 datastore's keys: 3 walks stage every row at
+    once; a launch of more walks than SMs has 32 KB for 4 rows of M0 = 8,
+    so the plan stages slices of 1,024 columns (two buffers)."""
+    case = _walk_case(1, 40, 2048, 3, 8, seed=5)
+    plan = walk_plan(walks, 40, 2048, 16, 8, False, H100_SMS)
+    assert plan.slice_cols == cols
+    _against_reference(case, plan, metric="l2", ef=16, max_iters=400)
+
+
+def test_staged_walk_with_a_large_beam():
+    """ef = 600: the plan stages a quarter of an expansion's rows a pass;
+    the beam holds hundreds of entries, so survivors land deep in it."""
+    case = _walk_case(1, 700, 8, 2, 8, seed=13)
+    plan = walk_plan(2, 700, 8, 600, 8, False, H100_SMS)
+    assert (plan.stage_rows, plan.stage_buffers) == (2, 1)
+    s_m, _ = _against_reference(case, metric="l2", ef=600, max_iters=400)
+    assert (np.isfinite(s_m).sum(axis=-1) >= 300).all()
+
+
+@pytest.mark.parametrize("max_iters,ef", ((0, 6), (1, 6), (3, 6), (400, 64)))
+def test_staged_walk_iteration_bound_and_ef_above_n(max_iters, ef):
+    """The max_iters cut-off, and ef = 64 above n = 30 (ef' = n)."""
+    case = _walk_case(2, 30, 5, 4, 4, seed=23, grid=True)
+    s_m, _ = _against_numpy_twin(case, metric="l2", ef=ef,
+                                 max_iters=max_iters)
+    assert s_m.shape[-1] == min(ef, 30)
+    _against_reference(_walk_case(2, 30, 5, 4, 4, seed=24), metric="ip",
+                       ef=ef, max_iters=max_iters)
+
+
+def test_staged_walk_ties_and_duplicate_slots():
+    """All rows identical (every score ties: the old beam, then slot
+    order), and adjacency rows that list a node twice (it is a candidate
+    twice, as the visited test precedes the marks)."""
+    n = 8
+    x = np.ones((1, n, 4), np.float32)
+    bottom = np.random.default_rng(5).integers(
+        -1, n, size=(1, n, 3)).astype(np.int32)
+    case = (x, bottom, np.ones((1, 4, 4), np.float32),
+            np.array([[0, 3, 5, 7]], np.int32), None, None)
+    _against_numpy_twin(case, metric="l2", ef=5, max_iters=400)
+    bottom = np.full((1, 6, 4), -1, np.int32)
+    for i in range(6):
+        bottom[0, i] = [(i + 1) % 6, (i + 1) % 6, (i + 2) % 6, -1]
+    x = np.arange(6, dtype=np.float32)[None, :, None] * np.ones(
+        (1, 6, 3), np.float32)
+    case = (x, bottom, np.full((1, 2, 3), 2.0, np.float32),
+            np.array([[0, 3]], np.int32), None, None)
+    _, i_m = _against_numpy_twin(case, metric="l2", ef=4, max_iters=400)
+    assert any(len(set(r[r >= 0])) < (r >= 0).sum() for r in i_m[0])
+
+
+def test_staged_walk_grid_ties_over_many_batches():
+    """Integer rows with M0 = 48 (two candidate batches an expansion):
+    exact scores, many ties, held against the numpy twin."""
+    case = _walk_case(2, 200, 6, 4, 48, seed=31, grid=True)
+    _against_numpy_twin(case, metric="l2", ef=24, max_iters=400)
+
+
+def test_staged_walk_pinned_signed_zero_case_matches_numpy_twin():
+    """The reference's three-way property case (2, 19, 1, 1, 3, 1, 1,
+    'ip'): every score of shard 0 is +-0; -0.0 == +0.0, lowest position
+    wins, as in the numpy twin."""
+    rng = np.random.default_rng(1)
+    x = rng.integers(-8, 9, size=(2, 19, 1)).astype(np.float32)
+    bottom = rng.integers(-1, 19, size=(2, 19, 3)).astype(np.int32)
+    q = rng.integers(-8, 9, size=(2, 1, 1)).astype(np.float32)
+    e = rng.integers(0, 19, size=(2, 1)).astype(np.int32)
+    _against_numpy_twin((x, bottom, q, e, None, None), metric="ip", ef=1,
+                        max_iters=400)
+
+
+def test_staged_walk_leaves_empty_slots():
+    """Entry -1 slots come back (-inf, -1); the other slots answer as the
+    reference does without them; the port's plain walk agrees."""
+    x, b, q, e, _, _ = _walk_case(2, 60, 8, 6, 6, seed=9)
+    e_gap = e.copy()
+    e_gap[:, 1::2] = -1
+    s_m, i_m = beam_search_staged_ref(x, b, q, e_gap, metric="l2", ef=10,
+                                      max_iters=400)
+    assert (i_m[:, 1::2] == -1).all() and np.isneginf(s_m[:, 1::2]).all()
+    s_r, i_r = ref_beam(jnp.asarray(x), jnp.asarray(b), jnp.asarray(q),
+                        jnp.asarray(e), metric="l2", ef=10, max_iters=400)
+    np.testing.assert_array_equal(i_m[:, ::2], np.asarray(i_r)[:, ::2])
+    np.testing.assert_allclose(s_m[:, ::2], np.asarray(s_r)[:, ::2],
+                               **_topk_tol("l2"))
+    t = torch.as_tensor
+    s_p, i_p = beam_search(t(x), t(b), t(q), t(e_gap), metric="l2", ef=10,
+                           max_iters=400)
+    np.testing.assert_array_equal(i_p.numpy(), i_m)
+    np.testing.assert_allclose(s_p.numpy(), s_m, **_topk_tol("l2"))

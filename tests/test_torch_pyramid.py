@@ -3,8 +3,12 @@
 answer the same queries through ``search_single_host`` (ids equal, scores
 to rtol/atol 1e-5), over naive and routed search, int8 storage with
 rerank factors 1 and 4, and tag filters at selectivity 0, 0.05 and 1;
-and a build by each package on the same data reaches recall@10 within
-0.02 of the other's.
+at ip (with MIPS replication, ``replication_r``) and angular, float32 and
+int8, unfiltered and with a scalar filter, a filter mixed per query and a
+filter of selectivity 0; the port's ``shard_search``, which neither
+descends nor walks empty queue slots, returns the reference's ``(qidx,
+ids, scores)``, whose walk covers every slot; and a build by each package
+on the same data reaches recall@10 within 0.02 of the other's.
 
 Everything runs on the CPU at a small size (n=600, d=16): the port's
 kernels take their plain PyTorch versions there.
@@ -12,11 +16,13 @@ kernels take their plain PyTorch versions there.
 import concurrent.futures
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.common.config import PyramidConfig as RefConfig
+from repro.core import arena as RA
 from repro.core import distributed as RD
 from repro.core import metrics as RM
 from repro.core.meta_index import build_pyramid_index as ref_build
@@ -24,6 +30,7 @@ from repro_torch import convert
 from repro_torch.build import build_pyramid_index_parallel, build_subgraphs
 from repro_torch.build import plan_build
 from repro_torch.common.config import PyramidConfig
+from repro_torch.core import arena as TA
 from repro_torch.core import distributed as TD
 from repro_torch.core.meta_index import build_pyramid_index
 
@@ -32,6 +39,13 @@ CFG = dict(metric="l2", num_shards=4, meta_size=40, sample_size=400,
            branching_factor=2, max_degree=8, max_degree_upper=4,
            ef_construction=32, ef_search=32, kmeans_iters=6, seed=0)
 SCORE_TOL = dict(rtol=1e-5, atol=1e-4)   # l2: cancellation in 2q.x-|q|^2-|x|^2
+# the other metrics' indexes: ip with MIPS replication, and angular
+METRIC_CFGS = {"ip": dict(metric="ip", replication_r=20),
+               "angular": dict(metric="angular")}
+# filters: none; bit 0 (5% of the items); mixed per query (bit 0, bit 1 on
+# every item, and bit 40 on none); bit 40 (selectivity 0)
+FILTERS = {"none": None, "scalar": 1, "mixed": (1, 2, 1 << 40),
+           "zero": 1 << 40}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,8 +85,7 @@ def _graph_arrays(g):
     return {f: getattr(g, f) for f in convert.GRAPH_FIELDS}
 
 
-@pytest.fixture(scope="module")
-def port_index(ref_index):
+def _carry(ref_index):
     return convert.index_from_arrays(
         dataclasses.asdict(ref_index.config), _graph_arrays(ref_index.meta),
         ref_index.part_of_center,
@@ -80,12 +93,33 @@ def port_index(ref_index):
         quant=ref_index.quant_params().to_manifest(), device="cpu")
 
 
-def _assert_same(ref_out, port_out):
+@pytest.fixture(scope="module")
+def port_index(ref_index):
+    return _carry(ref_index)
+
+
+@pytest.fixture(scope="module", params=tuple(METRIC_CFGS))
+def metric_indexes(request, data):
+    """(metric, reference index, port index) at ip and at angular."""
+    x, _, tags = data
+    ref = ref_build(x, RefConfig(**{**CFG, **METRIC_CFGS[request.param]}))
+    for g in ref.subs:
+        g.tags = tags[np.asarray(g.ids)]
+    return request.param, ref, _carry(ref)
+
+
+def _assert_same(ref_out, port_out, tol=SCORE_TOL):
     r_ids, r_s, r_mask = ref_out
     t_ids, t_s, t_mask = port_out
     np.testing.assert_array_equal(np.asarray(r_mask), t_mask)
     np.testing.assert_array_equal(np.asarray(r_ids), t_ids)
-    np.testing.assert_allclose(np.asarray(r_s), t_s, **SCORE_TOL)
+    np.testing.assert_allclose(np.asarray(r_s), t_s, **tol)
+
+
+def _filter_of(name, b):
+    f = FILTERS[name]
+    return np.resize(np.asarray(f, np.int64), b) if isinstance(f, tuple) \
+        else f
 
 
 def test_convert_carries_the_index(ref_index, port_index):
@@ -128,6 +162,51 @@ def test_filtered_search_matches_reference(data, ref_index, port_index,
     _assert_same(ref_out, port_out)
     live = port_out[0][port_out[0] >= 0]
     assert np.all((tags[live] & filter_tags) != 0)
+
+
+@pytest.mark.parametrize("filt", tuple(FILTERS))
+@pytest.mark.parametrize("mode", ("float32", "int8"))
+def test_other_metrics_match_reference(data, metric_indexes, mode, filt):
+    """ip (replicated MIPS index) and angular: ids equal, scores to
+    rtol = atol = 1e-5, float32 and int8 (rerank factor 4), under every
+    kind of filter."""
+    _, q, tags = data
+    metric, ref, port = metric_indexes
+    if metric == "ip":
+        assert ref.build_stats["replicated_items"] > 0
+    kw = dict(quantize=True, rerank_factor=4) if mode == "int8" else {}
+    f = _filter_of(filt, len(q))
+    ref_out = RD.search_single_host(ref, q, K, filter_tags=f, **kw)
+    port_out = TD.search_single_host(port, q, K, filter_tags=f, **kw)
+    _assert_same(ref_out, port_out, dict(rtol=1e-5, atol=1e-5))
+    if f is not None:
+        live = port_out[0] >= 0
+        rows = np.broadcast_to(np.asarray(f), (len(q),))
+        hits = tags[np.where(live, port_out[0], 0)] & rows[:, None]
+        assert np.all(hits[live] != 0)
+
+
+@pytest.mark.parametrize("mode", ("float32", "int8"))
+def test_shard_search_skips_empty_slots(data, ref_index, port_index, mode):
+    """A capacity of the whole batch, twice the mean shard load, leaves
+    half the queue slots empty: the port neither descends nor walks them
+    (entry -1) and returns what the reference returns from its walk over
+    every slot."""
+    _, q, _ = data
+    mask = TD._route(port_index, q, False, 2, "l2")
+    capacity = len(q)
+    kw = dict(metric="l2", k=K, ef=32, capacity=capacity)
+    r_qidx, r_ids, r_s = RA.shard_search(
+        ref_index.arena(mode), jnp.asarray(mask), jnp.asarray(q), **kw)
+    t_qidx, t_ids, t_s = TA.shard_search(
+        port_index.arena(mode), torch.as_tensor(mask), torch.as_tensor(q),
+        **kw)
+    np.testing.assert_array_equal(np.asarray(r_qidx), t_qidx.numpy())
+    np.testing.assert_array_equal(np.asarray(r_ids), t_ids.numpy())
+    np.testing.assert_allclose(np.asarray(r_s), t_s.numpy(), **SCORE_TOL)
+    empty = t_qidx.numpy() >= len(q)
+    assert empty.mean() >= 0.4
+    assert (t_ids.numpy()[empty] == -1).all()
 
 
 def test_python_oracle_agrees_with_fused_path(data, port_index):

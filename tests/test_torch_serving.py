@@ -4,7 +4,10 @@ The reference's own engine fixture (``clustered_vectors(1500, 12, 12)``,
 4 shards, ``tests/test_faults.py``) is built once by ``repro`` and
 carried into ``repro_torch`` by ``convert.py``; both engines answer the
 same 48 queries in float32 and in int8 with rerank factor 4 (ids equal,
-scores to rtol/atol 1e-5). The reference's scripted fault storm,
+scores to rtol/atol 1e-5); at l2, ip (with MIPS replication) and angular,
+float32 and int8, the two engines also agree under a scalar tag filter,
+a filter mixed per query and a filter of selectivity 0, and after
+``add_tombstones``. The reference's scripted fault storm,
 replayed on the port's engine, fires the events the reference fires,
 keeps the exactly-once contract and returns the ids of the port's
 fault-free run; a seeded storm under the supervising Monitor does the
@@ -90,6 +93,33 @@ def indexes():
     return x, ref, port
 
 
+# tagged indexes: the engine fixture's data and settings at each metric
+# (ip over a replicated MIPS index), bit 0 on 5% of the items, bit 1 on
+# all of them, bit 40 on none
+TAGGED_CFGS = {"l2": {}, "ip": dict(metric="ip", replication_r=20),
+               "angular": dict(metric="angular")}
+ENGINE_FILTERS = {"scalar": 1, "mixed": (1, 2, 1 << 40), "zero": 1 << 40}
+
+
+@pytest.fixture(scope="module", params=tuple(TAGGED_CFGS))
+def tagged(request):
+    """(metric, tags, reference index, port index), tags on both."""
+    x = clustered_vectors(1500, 12, 12, seed=0)
+    rng = np.random.default_rng(4)
+    tags = np.full(len(x), 2, np.int64)
+    tags[rng.choice(len(x), size=len(x) // 20, replace=False)] |= 1
+    ref = ref_build(x, RefConfig(**{**CFG, **TAGGED_CFGS[request.param]}))
+    for g in ref.subs:
+        g.tags = tags[np.asarray(g.ids)]
+    arrays = lambda g: {f: getattr(g, f)  # noqa: E731
+                        for f in convert.GRAPH_FIELDS}
+    port = convert.index_from_arrays(
+        dataclasses.asdict(ref.config), arrays(ref.meta), ref.part_of_center,
+        [arrays(g) for g in ref.subs],
+        quant=ref.quant_params().to_manifest(), device="cpu")
+    return request.param, x, tags, ref, port
+
+
 @contextlib.contextmanager
 def serving(index, cls=ServingEngine, **kw):
     eng = cls(index, **kw)
@@ -160,6 +190,44 @@ def test_engine_matches_reference_engine(indexes, fault_free, mode):
     assert stats["quantized"] == (mode == "int8")
     assert stats["submitted_queries"] == 48
     assert launch_counts() == before        # plain versions on the CPU
+
+
+@pytest.mark.parametrize("mode", ("float32", "int8"))
+def test_engine_filters_and_tombstones_match_reference(tagged, mode):
+    """Both engines, side by side, answer 24 queries unfiltered, under
+    each filter, then after tombstoning the best id of 8 queries: ids
+    equal, scores to rtol/atol 1e-5, no id of a filtered answer misses
+    its filter, no tombstoned id returns."""
+    metric, x, tags, ref, port = tagged
+    q = query_set(x, 24, seed=17)
+    kw = dict(quantize=True, rerank_factor=4) if mode == "int8" else {}
+    with serving(ref, RefEngine, replicas=1, **kw) as r_eng, \
+            serving(port, replicas=1, **kw) as t_eng:
+        def both(**sub):
+            r = gather_arrays(r_eng.submit(q, k=K, **sub), K, WAIT)
+            t = gather_arrays(t_eng.submit(q, k=K, **sub), K, WAIT)
+            np.testing.assert_array_equal(t[0], r[0])
+            np.testing.assert_allclose(t[1], r[1], **SCORE_TOL)
+            return t[0]
+        free = both()
+        assert (free >= 0).all()
+        for name, f in ENGINE_FILTERS.items():
+            f = np.resize(np.asarray(f, np.int64), len(q)) \
+                if isinstance(f, tuple) else np.int64(f)
+            ids = both(filter_tags=f)
+            live = ids >= 0
+            rows = np.broadcast_to(f, (len(q),))[:, None]
+            assert np.all((tags[np.where(live, ids, 0)] & rows)[live] != 0)
+            if name == "zero":
+                assert not live.any()
+        dead = free[:8, 0]
+        r_eng.add_tombstones(dead)
+        t_eng.add_tombstones(dead)
+        after = both()
+    assert not np.isin(after, dead).any()
+    untouched = ~np.isin(free, dead).any(axis=1)
+    assert untouched.any(), metric
+    np.testing.assert_array_equal(after[untouched], free[untouched])
 
 
 def test_arena_accessors_match_reference(indexes):
