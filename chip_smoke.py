@@ -7,8 +7,7 @@ Phases, each raising on failure (the script then exits non-zero):
 
   1. environment: the card's name and power limit, torch and CUDA
      versions, and the kernels' build from the sources in ``src/``
-     (one ``nvcc`` process for each CUDA source, all started together;
-     Triton kernels compile at first launch);
+     (one ``nvcc`` process for each CUDA source, all started together);
   2. kernels against their plain PyTorch versions on the card, at the
      main path's shapes, with their times from CUDA events, their bounds
      and, where one exists, a PyTorch library call's time (the beam walk
@@ -33,8 +32,9 @@ Phases, each raising on failure (the script then exits non-zero):
      (``build_datastore``), ``ContinuousBatcher`` over 16 requests in 8
      slots, and a kNN-LM step (``hidden_states`` -> ``knn_probs`` ->
      ``interpolate``) whose kNN argmax must hit the corpus's next token,
-     with prefill and decode-step times, tokens/s, peak device memory and
-     launches per kernel (``flash_decode`` once per layer and step);
+     with prefill and decode-step times, tokens/s, peak device memory,
+     launches per kernel (``flash_decode`` once per layer and step) and
+     flash-decode's device time a launch in a profiled decode step;
   6. mamba2-780m serving at full width, the same way (bf16, synthetic
      weights): a float32 check of the recurrent decode from the prefill
      state against the full forward, held layer by layer (each layer fed
@@ -274,6 +274,11 @@ def bound(nbytes: float, ops: float, flops: float = FP32_FLOPS) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# the merge's CUDA kernels (merge_warp_kernel, merge_block_kernel), as the
+# profiler names them
+MERGE_KERNEL_NAME = "merge_"
+
+
 def check_merge(dev, b: int, m: int, k: int, seed: int = 1) -> dict:
     """B rows of m = w * k partials with duplicate ids (replication)."""
     import torch
@@ -285,7 +290,13 @@ def check_merge(dev, b: int, m: int, k: int, seed: int = 1) -> dict:
     s_k, i_k = merge_topk_cuda(scores, ids, k=k)
     s_r, i_r = merge_topk_ref(scores, ids, k=k)
     out = compare(f"merge_topk m={m} k={k}", i_k, i_r, s_k, s_r)
+    # a selection: ids and scores must be equal, not close
+    if not (torch.equal(i_k, i_r) and torch.equal(s_k, s_r)):
+        raise AssertionError(f"merge_topk m={m} k={k}: ids or scores differ "
+                             f"from the plain version's")
     out["ms"] = cuda_ms(lambda: merge_topk_cuda(scores, ids, k=k), 20)
+    out["kernel_device_ms"] = device_kernels_of(
+        lambda: merge_topk_cuda(scores, ids, k=k), 20, MERGE_KERNEL_NAME)[0]
     out["plain_ms"] = cuda_ms(lambda: merge_topk_ref(scores, ids, k=k), 3)
     nbytes = b * m * 8 + b * k * 8
     ops = b * m * k * 3    # k rounds of max, position and id-match over m
@@ -407,12 +418,15 @@ def device_kernels_of(fn, reps: int, name: str):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key]
+    for _ in range(3):      # the profiler now and then records no kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        if events:
+            break
     us = sum(e.self_device_time_total for e in events)
     by_name = {}
     for e in events:
@@ -423,73 +437,104 @@ def device_kernels_of(fn, reps: int, name: str):
     return us / 1e3 / reps, sum(e.count for e in events) / reps, by_name
 
 
-def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
-                 kvh: int = 8, hd: int = 128, dtype: str = "bfloat16",
-                 full: bool = False, seed: int = 3) -> dict:
-    """Flash-decode against its plain version: q [B, H, hd] f32, a cache
-    [B, S, KV, hd] in ``dtype``, random ``pos`` (or S - 1 with ``full``).
-    Launches rotate over enough copies of the cache that each one reads
-    it from device memory, not from the 50 MB L2, as a layer of a decode
-    step does."""
-    import itertools
+def served_positions(b: int, seed: int) -> np.ndarray:
+    """Cache positions of phase 5's decode steps: a prompt of prompt_lo to
+    prompt_hi tokens plus 0 to max_new generated ones, in each of b
+    slots."""
+    cell = LM_SPECS["qwen3-1.7b"]["cell"]
+    rng = np.random.default_rng(seed)
+    return (rng.integers(cell["prompt_lo"], cell["prompt_hi"] + 1, b)
+            + rng.integers(0, cell["max_new"] + 1, b) - 1)
 
+
+def decode_inputs(dev, *, b: int = 8, s: int = 1024, h: int = 16,
+                  kvh: int = 8, hd: int = 128, dtype: str = "bfloat16",
+                  pos: str = "random", seed: int = 3):
+    """q [B, H, hd] f32, a cache [B, S, KV, hd] in ``dtype`` and ``pos``:
+    "random" (0..S-1), "full" (S - 1) or "served"
+    (:func:`served_positions`)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (decode_attention_ref,
-                                                      flash_decode_cuda)
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, h, hd, device=dev, generator=g)
     k = torch.randn(b, s, kvh, hd, device=dev, generator=g).to(dt)
     v = torch.randn(b, s, kvh, hd, device=dev, generator=g).to(dt)
-    if full:
-        pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    if pos == "full":
+        p = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    elif pos == "served":
+        p = torch.as_tensor(served_positions(b, seed), dtype=torch.int32,
+                            device=dev)
     else:
-        pos = torch.randint(0, s, (b,), device=dev, generator=g,
-                            dtype=torch.int32)
+        p = torch.randint(0, s, (b,), device=dev, generator=g,
+                          dtype=torch.int32)
+    return q, k, v, p
+
+
+def rotating(k, v, fn):
+    """``fn(k, v)`` over enough copies of the cache that each call reads
+    it from device memory, not from the 50 MB L2, as a layer of a decode
+    step does: (the call, the copies)."""
+    import itertools
+    copies = max(1, -(-int(4 * L2_BYTES) // (2 * k.nbytes)))
+    it = itertools.cycle([(k, v)] + [(k.clone(), v.clone())
+                                     for _ in range(copies - 1)])
+    return (lambda: fn(*next(it))), copies
+
+
+def decode_bound(k, pos, b: int, h: int) -> dict:
+    """The least the card must move: the valid K and V rows (0..pos[b]),
+    q and pos in, the float32 output out; the operations are q.k and p.v
+    for every head and valid row."""
+    kvh, hd = k.shape[2], k.shape[3]
+    rows = int((pos.long() + 1).sum())
+    nbytes = (2 * rows * kvh * hd * k.element_size() + b * h * hd * 4 * 2
+              + b * 4)
+    ops = 4 * rows * h * hd
+    return {"valid_rows": rows, "bytes": nbytes, "ops": ops,
+            **bound(nbytes, ops)}
+
+
+def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
+                 kvh: int = 8, hd: int = 128, dtype: str = "bfloat16",
+                 pos: str = "random", seed: int = 3) -> dict:
+    """Flash-decode against its plain version (:func:`decode_inputs`).
+    Launches rotate over copies of the cache (:func:`rotating`)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                      flash_decode_cuda)
+    q, k, v, pos_t = decode_inputs(dev, b=b, s=s, h=h, kvh=kvh, hd=hd,
+                                   dtype=dtype, pos=pos, seed=seed)
+    pos_mode, pos = pos, pos_t
     out = flash_decode_cuda(q, k, v, pos)
     ref = decode_attention_ref(q, k, v, pos)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     if not torch.allclose(out, ref, rtol=DECODE_TOL, atol=DECODE_TOL):
-        raise AssertionError(f"flash_decode B={b} S={s} {dtype}: kernel "
-                             f"disagrees with its plain version (max abs "
-                             f"err {err:.3g})")
-    copies = max(1, -(-int(4 * L2_BYTES) // (2 * k.nbytes)))
-    caches = [(k, v)] + [(k.clone(), v.clone()) for _ in range(copies - 1)]
+        raise AssertionError(f"flash_decode B={b} S={s} {dtype} {pos_mode}: "
+                             f"kernel disagrees with its plain version (max "
+                             f"abs err {err:.3g})")
     mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())
     mask = mask[:, None, None, :]
-    qs = q.to(dt)[:, :, None, :]
-
-    def rotate(fn):
-        it = itertools.cycle(caches)
-        return lambda: fn(*next(it))
-
-    launch = rotate(lambda kk, vv: flash_decode_cuda(q, kk, vv, pos))
+    qs = q.to(k.dtype)[:, :, None, :]
+    launch, copies = rotating(
+        k, v, lambda kk, vv: flash_decode_cuda(q, kk, vv, pos))
     ms = cuda_ms(launch, 100)
     kernel_ms = device_kernels_of(launch, 20, "flash_decode")[0]
-    plain_ms = cuda_ms(rotate(
-        lambda kk, vv: decode_attention_ref(q, kk, vv, pos)), 5)
-    library_ms = cuda_ms(rotate(
-        lambda kk, vv: F.scaled_dot_product_attention(
+    plain_ms = cuda_ms(rotating(
+        k, v, lambda kk, vv: decode_attention_ref(q, kk, vv, pos))[0], 5)
+    library_ms = cuda_ms(rotating(
+        k, v, lambda kk, vv: F.scaled_dot_product_attention(
             qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
-            enable_gqa=True)), 100)
-    # the least the card must move: the valid K and V rows (0..pos[b]),
-    # q and pos in, the float32 output out; the operations are q.k and
-    # p.v for every head and valid row
-    rows = int((pos.long() + 1).sum())
-    nbytes = (2 * rows * kvh * hd * k.element_size() + b * h * hd * 4 * 2
-              + b * 4)
-    ops = 4 * rows * h * hd
-    del caches
+            enable_gqa=True))[0], 100)
+    del launch
     torch.cuda.empty_cache()
+    shown = {"full": "S-1", "served": "served"}.get(pos_mode, pos_mode)
     return {"shape": f"B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} "
-                     f"pos={'S-1' if full else 'random'}",
-            "valid_rows": rows, "max_abs_err": err, "ms": ms,
-            "kernel_device_ms": kernel_ms,
+                     f"pos={shown}",
+            "max_abs_err": err, "ms": ms, "kernel_device_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bytes": nbytes, "ops": ops, "cache_copies": copies,
-            **bound(nbytes, ops)}
+            "cache_copies": copies, **decode_bound(k, pos, b, h)}
 
 
 def check_ssd(dev, *, b: int = 1, s: int = 513, dtype: str = "bfloat16",
@@ -592,8 +637,8 @@ def kernels_vs_plain(dev, n: int) -> dict:
         r = check_merge(dev, 1024, m, k)
         res["merge_topk"].append(r)
         log(f"merge_topk m={m} k={k}: ids equal {r['ids_equal']:.5f} "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.3f} ms "
-            f"bound {r['bound_ms']:.5f} ms")
+            f"kernel {r['ms']:.4f} ms (device {r['kernel_device_ms']:.4f} "
+            f"ms) plain {r['plain_ms']:.3f} ms bound {r['bound_ms']:.5f} ms")
     # run K's two shapes, then the k-means assignments of phase 4's build
     # (the 20,000-row sample against 1,000 centres) and of phases 5 and 6's
     # datastores (400 sampled keys against 32 centres at qwen3-1.7b's and
@@ -626,9 +671,10 @@ def kernels_vs_plain(dev, n: int) -> dict:
                 f"matmul yardstick {r['matmul_yardstick_ms']:.4f} ms bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     # a full-width qwen3-1.7b decode step's attention (8 slots, a 1,024-row
-    # cache; bf16 as served, f32 as checked), then a long cache
+    # cache; bf16 as served, f32 as checked), then a long cache, then
+    # phase 5's served positions
     for kw in (dict(), dict(dtype="float32"),
-               dict(s=32_768, full=True)):
+               dict(s=32_768, pos="full"), dict(pos="served")):
         r = check_decode(dev, **kw)
         res["decode_attention"].append(r)
         log(f"decode_attention {r['shape']}: max err {r['max_abs_err']:.3g}"
@@ -750,25 +796,30 @@ def gpu_truth(x, q, k, alive=None):
     return torch.topk(sims, k, dim=1).indices.cpu().numpy()
 
 
-# the beam walk's CUDA kernel, as the profiler names it
+# the beam walk's and flash-decode's CUDA kernels, as the profiler names
+# them, by the launch counter of their wrappers
 BEAM_KERNEL_NAME = "beam_walk_kernel"
+PROFILED_KERNELS = {"beam_search": BEAM_KERNEL_NAME,
+                    "decode_attention": "flash_decode_kernel"}
 
 
 def device_breakdown(fn, batch_s: float) -> dict:
     """Device time of one call under ``torch.profiler``: total kernel time,
     its share of the call's unprofiled wall time (the rest is the card
-    idling on the host), and the kernels that take the most."""
+    idling on the host), the kernels that take the most, and the launches
+    and device time of each of PROFILED_KERNELS (``<name>_launches``,
+    ``<name>_device_ms``, ``<name>_device_ms_per_launch``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import launch_counts
     torch.cuda.synchronize()
-    before = launch_counts()["beam_search"]
+    before = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    beam_launches = launch_counts()["beam_search"] - before
+    after = launch_counts()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
@@ -777,15 +828,18 @@ def device_breakdown(fn, batch_s: float) -> dict:
     device_us = sum(t for _, t in per_kernel)
     if device_us == 0:
         log("profiler saw no device time")
-    beam_us = sum(t for key, t in per_kernel if BEAM_KERNEL_NAME in key)
-    return {"device_ms": device_us / 1e3,
-            "kernels_launched": sum(e.count for e in events),
-            "busy_share": device_us / 1e6 / batch_s,
-            "beam_search_launches": beam_launches,
-            "beam_search_device_ms": beam_us / 1e3,
-            "beam_search_device_ms_per_launch":
-                beam_us / 1e3 / beam_launches if beam_launches else None,
-            "top_kernels_ms": {k[:80]: t / 1e3 for k, t in per_kernel[:8]}}
+    out = {"device_ms": device_us / 1e3,
+           "kernels_launched": sum(e.count for e in events),
+           "busy_share": device_us / 1e6 / batch_s}
+    for kernel, name in PROFILED_KERNELS.items():
+        launches = after[kernel] - before[kernel]
+        ms = sum(t for key, t in per_kernel if name in key) / 1e3
+        out.update({f"{kernel}_launches": launches,
+                    f"{kernel}_device_ms": ms,
+                    f"{kernel}_device_ms_per_launch":
+                        ms / launches if launches else None})
+    out["top_kernels_ms"] = {k[:80]: t / 1e3 for k, t in per_kernel[:8]}
+    return out
 
 
 def counting_shard_walks(fn):
@@ -1503,7 +1557,7 @@ def serving_path(state: dict, recall_single_host: float) -> dict:
 KERNELS = {
     "beam_search": ("cuda", "src/repro_torch/csrc/beam_search.cu",
                     "src/repro/kernels/beam_search/kernel.py:188"),
-    "merge_topk": ("triton", "src/repro_torch/kernels/merge_topk/ops.py",
+    "merge_topk": ("cuda", "src/repro_torch/csrc/merge_topk.cu",
                    "src/repro/kernels/merge_topk/kernel.py:51"),
     "topk_distance": ("cuda", "src/repro_torch/csrc/topk_distance.cu",
                       "src/repro/kernels/topk_distance/kernel.py:99"),

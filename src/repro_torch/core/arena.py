@@ -12,7 +12,7 @@ capacity-bounded walk -> dedup-top-k merge pipeline:
     dummy row B) neither descend nor walk (entry -1), where the
     reference walks them from a clamped query and masks their output;
   * ``scatter_partials`` puts the per-shard partials back on query rows;
-  * ``merge_topk`` (the Triton kernel on the card) dedups and keeps k.
+  * ``merge_topk`` (the CUDA kernel on the card) dedups and keeps k.
 
 A :class:`QuantizedShardArena` is the int8 twin: codes on the index's
 frozen per-dimension grid, scored asymmetrically inside the same walk.

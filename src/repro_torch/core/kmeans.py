@@ -1,7 +1,7 @@
 """Lloyd's k-means and spherical k-means (Alg. 3 line 4 / Alg. 5 line 5).
 
 Port of ``repro.core.kmeans.kmeans``. Assignment goes through the top-k
-scan with k = 1 (``repro_torch.kernels.topk_distance``, the Triton kernel
+scan with k = 1 (``repro_torch.kernels.topk_distance``, the CUDA kernel
 on the card), as the reference's ``_assign`` does. The reference seeds
 with ``jax.random``, which torch cannot reproduce: the port takes
 ``init_centers=`` or draws distinct rows with a ``torch.Generator``

@@ -1,64 +1,39 @@
-"""Dedup-top-k merge: a Triton kernel for tensors on the card
-(``merge_topk_cuda``), the plain PyTorch rounds for tensors on the CPU.
-Port of ``repro.kernels.merge_topk.ops`` (``alive`` mask, padding when
-k > m).
-
-The Triton kernel replaces the Pallas TPU kernel ``merge_topk_pallas``
-(src/repro/kernels/merge_topk/kernel.py). It is a row-wise reduction:
-one program holds one row of m = w * k_search partials in registers and
-runs k rounds of (max, lowest position of the max, id-match retire).
-What bounds it on the H100: it reads 8 bytes and writes at most 8 bytes
-per entry, so its floor is memory traffic, but k dependent reductions
-over the row make it latency-bound at the path's sizes (m of 160 to
-5,120); the design keeps the whole row on chip so that every round
-touches registers only, and launches one program per row so that the
-1,024 rows of a batch spread over all SMs.
+"""Dedup-top-k merge: the CUDA kernel for tensors on the card
+(``merge_topk_cuda``, ``csrc/merge_topk.cu``: one warp a row, one packed
+key an entry), the plain PyTorch rounds for tensors on the CPU. Port of
+``repro.kernels.merge_topk.ops`` (``alive`` mask, padding when k > m).
 """
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
 
 from repro_torch.kernels.merge_topk.ref import merge_topk_ref
 
-triton = None
-tl = None
+# entries of a row the kernel takes: up to 1,280 a warp in registers,
+# above that a block with the row in shared memory (12 bytes an entry)
+MAX_M = 16_384
+
+_lib = None
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    global triton, tl
-    import triton as _triton
-    import triton.language as _tl
-    triton, tl = _triton, _tl
-
-    @triton.jit
-    def merge_kernel(s_ptr, i_ptr, os_ptr, oi_ptr, m, k,
-                     BLOCK_M: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_M)
-        inb = cols < m
-        s = tl.load(s_ptr + row * m + cols, mask=inb, other=-float("inf"))
-        ids = tl.load(i_ptr + row * m + cols, mask=inb, other=-1)
-        s = tl.where(ids >= 0, s, -float("inf"))
-        for r in range(k):
-            best = tl.max(s, axis=0)
-            # lowest position among the maxima (-0.0 == +0.0)
-            j = tl.min(tl.where(s == best, cols, BLOCK_M), axis=0)
-            bid = tl.sum(tl.where(cols == j, ids, 0), axis=0)
-            alive = best > -float("inf")
-            bid = tl.where(alive, bid, -1)
-            tl.store(os_ptr + row * k + r, best)
-            tl.store(oi_ptr + row * k + r, bid)
-            retire = (cols == j) | ((ids == bid) & (bid >= 0))
-            s = tl.where(retire, -float("inf"), s)
-
-    return merge_kernel
+def _library():
+    global _lib
+    if _lib is None:
+        from repro_torch.kernels import cuda_lib
+        lib = cuda_lib.load("merge_topk")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.merge_topk_launch.argtypes = [p, p, p, p, i, i, i, p]
+        lib.merge_topk_launch.restype = i
+        _lib = lib
+    return _lib
 
 
 def merge_topk_cuda(scores: torch.Tensor, ids: torch.Tensor, *, k: int):
-    """Launch the Triton merge on [B, m] CUDA tensors (k <= m)."""
+    """Launch ``csrc/merge_topk.cu`` on [B, m] CUDA tensors (float32
+    scores, int32 ids, 0 < k <= m <= MAX_M). Returns (scores [B, k]
+    float32 descending, ids [B, k] int32), (-inf, -1) padded."""
     if scores.device.type != "cuda" or ids.device != scores.device:
         raise ValueError("merge_topk_cuda takes CUDA tensors")
     if scores.dtype != torch.float32 or ids.dtype != torch.int32:
@@ -69,14 +44,20 @@ def merge_topk_cuda(scores: torch.Tensor, ids: torch.Tensor, *, k: int):
     if ids.shape != (b, m) or not 0 < k <= m:
         raise ValueError(f"merge_topk_cuda: bad shapes {scores.shape}, "
                          f"{ids.shape}, k={k}")
+    if m > MAX_M:
+        raise ValueError(f"merge_topk_cuda: rows of {m} entries; the kernel "
+                         f"takes at most {MAX_M}")
     out_s = torch.empty((b, k), dtype=torch.float32, device=scores.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=scores.device)
     if b == 0:
         return out_s, out_i
-    block_m = max(16, 1 << (m - 1).bit_length())
-    warps = 4 if block_m <= 1024 else (8 if block_m <= 4096 else 16)
-    _kernel()[(b,)](scores, ids, out_s, out_i, m, k, BLOCK_M=block_m,
-                    num_warps=warps)
+    err = _library().merge_topk_launch(
+        scores.data_ptr(), ids.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), b, m, k,
+        torch.cuda.current_stream(scores.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"merge_topk kernel launch failed: CUDA error "
+                           f"{err}")
     merge_topk_cuda.launches += 1
     return out_s, out_i
 

@@ -2,7 +2,7 @@
 ``repro.kernels.merge_topk.ref``): Alg. 4 line 9, the coordinator
 combine of per-shard partial lists ``[B, m]`` (scores, external ids).
 
-Semantics shared by every implementation (Triton kernel / torch / numpy):
+Semantics shared by every implementation (CUDA kernel / torch / numpy):
   * ids < 0 are padding and never returned;
   * of a duplicate-id group only the best occurrence survives, score ties
     breaking to the lowest input position;

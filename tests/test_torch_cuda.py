@@ -193,6 +193,62 @@ def test_merge_and_topk_kernels_match_plain(cuda):
         _close(k_i, r_i, k_s, r_s)
 
 
+MERGE_WIDTHS = (1, 5, 31, 32, 33, 64, 100, 160, 161, 640, 1280, 1281,
+                2000, 5120)
+
+
+def _merge_inputs(cuda, b, m, ids_mode, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if ids_mode == "zeros":
+        # +0.0 and -0.0 at every other position, a few larger scores
+        scores = torch.zeros(b, m, device=cuda)
+        scores[:, 1::2] = -0.0
+        scores[:, ::7] = torch.randn(b, (m + 6) // 7, device=cuda,
+                                     generator=g)
+    else:
+        scores = torch.randn(b, m, device=cuda, generator=g)
+    if ids_mode == "empty":
+        ids = torch.full((b, m), -1, dtype=torch.int32, device=cuda)
+    elif ids_mode == "same":
+        ids = torch.full((b, m), 7, dtype=torch.int32, device=cuda)
+    else:   # duplicates spread over the lanes, some empty entries
+        ids = torch.randint(-1, max(2, m // 3), (b, m), device=cuda,
+                            generator=g, dtype=torch.int32)
+    return scores, ids
+
+
+@pytest.mark.parametrize("ids_mode", ("dups", "empty", "same", "zeros"))
+@pytest.mark.parametrize("k_of", ("one", "all"))
+@pytest.mark.parametrize("m", MERGE_WIDTHS)
+def test_merge_kernel_matches_plain_exactly(cuda, m, k_of, ids_mode):
+    """Ids and scores equal the plain rounds' exactly, from the warp path
+    (m <= 1,280) to the block path (m up to 5,120), at k = 1 and k = m."""
+    b = 37 if m <= 1280 else 5
+    k = 1 if k_of == "one" else m
+    scores, ids = _merge_inputs(cuda, b, m, ids_mode, m)
+    before = merge_topk_cuda.launches
+    k_s, k_i = merge_topk_cuda(scores, ids, k=k)
+    r_s, r_i = merge_topk_ref(scores, ids, k=k)
+    torch.cuda.synchronize()
+    assert merge_topk_cuda.launches == before + 1
+    assert torch.equal(k_i, r_i)
+    assert torch.equal(k_s, r_s)
+    # a -0.0 comes back as it went in
+    assert torch.equal(torch.signbit(k_s), torch.signbit(r_s))
+
+
+def test_merge_kernel_counts_its_launches(cuda):
+    scores, ids = _merge_inputs(cuda, 3, 40, "dups", 0)
+    reset_launch_counts()
+    merge_topk_cuda(scores, ids, k=5)
+    merge_topk_cuda(scores[:0], ids[:0], k=5)     # no row: no launch
+    assert launch_counts()["merge_topk"] == 1
+    with pytest.raises(ValueError, match="at most"):
+        merge_topk_cuda(torch.zeros(1, 20_000, device=cuda),
+                        torch.zeros(1, 20_000, dtype=torch.int32,
+                                    device=cuda), k=1)
+
+
 def test_search_on_card_matches_cpu(cuda):
     x = clustered_vectors(3000, 32, 24, seed=0)
     q = query_set(x, 64, seed=1)
@@ -285,9 +341,11 @@ def test_engine_on_card_matches_cpu(cuda):
 
 
 # (B, S, H, KV, hd): G = 1, 2, 3 and 8; S not a multiple of any tile; the
-# long one is split over blocks
+# long ones take several spans (and, at S = 32,768, spans of several
+# tiles); 64 x 8 = 512 (batch row, kv head) pairs
 DECODE_SHAPES = [(2, 128, 8, 8, 32), (3, 300, 16, 8, 128), (2, 97, 6, 2, 64),
-                 (1, 70, 8, 1, 16), (2, 5000, 16, 8, 128)]
+                 (1, 70, 8, 1, 16), (2, 5000, 16, 8, 128),
+                 (64, 1024, 16, 8, 128), (2, 32_768, 16, 8, 128)]
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
@@ -312,6 +370,70 @@ def test_flash_decode_kernel_matches_plain(cuda, shape, pos_mode, dtype):
     torch.cuda.synchronize()
     assert flash_decode_cuda.launches == before + 1
     torch.testing.assert_close(out, decode_attention_ref(q, k, v, pos),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _decode_inputs(cuda, b, s, h, kvh, hd, dtype, pos, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, h, hd, device=cuda, generator=g)
+    k = torch.randn(b, s, kvh, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, s, kvh, hd, device=cuda, generator=g).to(dtype)
+    return q, k, v, torch.as_tensor(pos, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("hd", (16, 32, 64, 128))
+@pytest.mark.parametrize("groups", range(1, 9))
+def test_flash_decode_every_group_and_head_dim(cuda, groups, hd, dtype):
+    """Ragged rows in one batch: pos 0, S - 1, one tile, and between."""
+    s = 700
+    q, k, v, pos = _decode_inputs(cuda, 5, s, 2 * groups, 2, hd, dtype,
+                                  [0, s - 1, 63, 64, 411], groups + hd)
+    out = flash_decode_cuda(q, k, v, pos)
+    torch.testing.assert_close(out, decode_attention_ref(q, k, v, pos),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_flash_decode_at_the_served_shape(cuda):
+    """qwen3-1.7b's decode step in chip_smoke.py's phase 5: 8 slots of a
+    1,024-row cache at prompt lengths of 64 to 256 plus up to 64 new
+    tokens."""
+    rng = np.random.default_rng(0)
+    pos = rng.integers(64, 257, 8) + rng.integers(0, 65, 8) - 1
+    q, k, v, pos = _decode_inputs(cuda, 8, 1024, 16, 8, 128, torch.bfloat16,
+                                  pos, 7)
+    torch.testing.assert_close(flash_decode_cuda(q, k, v, pos),
+                               decode_attention_ref(q, k, v, pos),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_flash_decode_reuses_its_workspace(cuda):
+    """Two calls in a row, and a call after one over more (batch row, kv
+    head) pairs, give the same output bit for bit: the workspace and its
+    counters are reused (the counters are back at 0 after every call),
+    and a call allocates only its output."""
+    from repro_torch.kernels.decode_attention import ops
+    small = _decode_inputs(cuda, 4, 3000, 16, 8, 128, torch.bfloat16,
+                           [2999, 1500, 64, 0], 1)
+    big = _decode_inputs(cuda, 32, 3000, 16, 8, 64, torch.float32,
+                         list(range(2999, 0, -93))[:32], 2)
+    first = flash_decode_cuda(*small)
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()["allocation.all.allocated"]
+    again = flash_decode_cuda(*small)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == stats + 1
+    assert torch.equal(first, again)
+    flash_decode_cuda(*big)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    part, counters = ops._workspaces[(cuda.index or 0, stream)]
+    assert counters.numel() >= 32 * 8 and int(counters.abs().sum()) == 0
+    after = flash_decode_cuda(*small)
+    assert torch.equal(first, after)
+    torch.testing.assert_close(after, decode_attention_ref(*small),
                                rtol=1e-4, atol=1e-4)
 
 
