@@ -90,10 +90,11 @@ RTOL, ATOL = 1e-5, 1e-4
 # sum in float32, in another order
 DECODE_TOL = 1e-4
 # the int8 distance scan vs its plain version, relative to the largest
-# |score| of the output: both dequantize identically and sum d = 128
-# float32 products in another order (the kernel in ascending d, cuBLAS in
-# its own), so a score near zero can part by more than 1e-5 of itself;
-# the elementwise rtol = atol = 1e-5 of the JAX tests is recorded beside
+# |score| of the output: the kernel sums d = 128 exact products (three
+# bf16 pieces of q * scale times the codes) in float32 on the tensor
+# cores, cuBLAS sums q * x in its own order, so a score near zero can part
+# by more than 1e-5 of itself; the elementwise rtol = atol = 1e-5 of the
+# JAX tests is recorded beside
 QUANT_TOL = 1e-5
 # the SSD scan vs its plain version on float32 copies of the same inputs,
 # as a share of the largest |y| (and of the largest |state|): both sum in
@@ -389,21 +390,32 @@ def check_quant(dev, b: int, n: int, d: int, metric: str,
     reps = 20 if b * n > 1e6 else 200
     ms = cuda_ms(lambda: quant_scores_cuda(q, codes, scale, zero,
                                            metric=metric), reps)
+    device_ms = device_kernels_of(
+        lambda: quant_scores_cuda(q, codes, scale, zero, metric=metric),
+        reps, "quant_distance")[0]
     plain_ms = cuda_ms(lambda: quant_scores_ref(q, codes, scale, zero,
                                                 metric=metric), 5)
     yardstick_ms = cuda_ms(lambda: torch.matmul(q, rows.T), reps)
-    # the least the card must move: codes, queries, scale and zero read
-    # once, the float32 scores written once; 2 B n d operations
-    nbytes = n * d + 4 * b * d + 4 * b * n + 8 * d
-    ops = 2 * b * n * d
     del rows, q, codes
     torch.cuda.empty_cache()
     return {"shape": f"B={b} n={n} d={d}", "metric": metric,
             "max_abs_err": err, "score_scale": scale_,
             "tolerance": QUANT_TOL, "outside_rtol_atol_1e-5": outside,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "matmul_yardstick_ms": yardstick_ms,
-            "bytes": nbytes, "ops": ops, **bound(nbytes, ops)}
+            "ms": ms, "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": None, "matmul_yardstick_ms": yardstick_ms,
+            **quant_bounds(b, n, d)}
+
+
+def quant_bounds(b: int, n: int, d: int) -> dict:
+    """The int8 scan's least work: codes, queries, scale and zero read
+    once and the float32 scores written once, against the kernel's
+    tensor-core products (three bf16 pieces of the query side: 3 x 2 B n
+    d at the bf16 rate); ``fp32_fma_bound_ms`` is the bound of 2 B n d
+    float32 FMAs instead (the CUDA-core kernel's, PRs 15 to 18)."""
+    nbytes = n * d + 4 * b * d + 4 * b * n + 8 * d
+    ops = 3 * 2 * b * n * d
+    return {"bytes": nbytes, "ops": ops, **bound(nbytes, ops, BF16_FLOPS),
+            "fp32_fma_bound_ms": bound(nbytes, 2 * b * n * d)["bound_ms"]}
 
 
 def device_kernels_of(fn, reps: int, name: str):
@@ -667,9 +679,11 @@ def kernels_vs_plain(dev, n: int) -> dict:
             log(f"quant_distance {r['shape']} {metric}: max err "
                 f"{r['max_abs_err']:.3g} (|score| <= {r['score_scale']:.3g};"
                 f" {r['outside_rtol_atol_1e-5']} outside rtol=atol=1e-5) "
-                f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-                f"matmul yardstick {r['matmul_yardstick_ms']:.4f} ms bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"kernel {r['ms']:.4f} ms (device "
+                f"{r['kernel_device_ms']:.4f} ms) plain {r['plain_ms']:.4f} "
+                f"ms matmul yardstick {r['matmul_yardstick_ms']:.4f} ms "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; float32 "
+                f"FMA bound {r['fp32_fma_bound_ms']:.4f} ms)")
     # a full-width qwen3-1.7b decode step's attention (8 slots, a 1,024-row
     # cache; bf16 as served, f32 as checked), then a long cache, then
     # phase 5's served positions
@@ -956,7 +970,11 @@ def int8_scan(index, q, k: int, truth) -> dict:
     int8 distance kernel's entry point: every stored code row (pad rows
     masked) against every query, then the top k. Its top k must equal
     the plain version's on the first 64 queries, and its recall@10
-    against the float32 truth is recorded."""
+    against the float32 truth is recorded. A position counts as equal
+    when the kernel's row is the plain version's row there, or has exactly
+    the plain version's score there by the plain version's own scores: an
+    exact tie in its float32 scores, whose order ``torch.topk`` does not
+    define (the positional share alone is recorded beside)."""
     import torch
     from repro_torch.kernels.quant_distance import (quant_scores,
                                                     quant_scores_ref)
@@ -967,22 +985,51 @@ def int8_scan(index, q, k: int, truth) -> dict:
     scale, zero = arena.scale[0], arena.zero[0]
     qt = torch.as_tensor(q).to(codes.device)
 
+    def masked(scores):
+        return scores.masked_fill(ids[None, :] < 0, -torch.inf)
+
     def top(scores):
-        scores = scores.masked_fill(ids[None, :] < 0, -torch.inf)
-        s, pos = torch.topk(scores, k, dim=1)
-        return ids[pos], s
-    (top_ids, top_s), dt = synced(lambda: top(quant_scores(
+        s, pos = torch.topk(masked(scores), k, dim=1)
+        return ids[pos], s, pos
+    (top_ids, top_s, top_pos), dt = synced(lambda: top(quant_scores(
         qt, codes, scale, zero, metric="l2")))
-    ref_ids, ref_s = top(quant_scores_ref(qt[:64], codes, scale, zero,
-                                          metric="l2"))
-    share = float((top_ids[:64] == ref_ids).float().mean())
+    _, scan_s = synced(lambda: quant_scores(qt, codes, scale, zero,
+                                            metric="l2"))
+    ref_scores = masked(quant_scores_ref(qt[:64], codes, scale, zero,
+                                         metric="l2"))
+    ref_ids, ref_s, _ = top(ref_scores)
+    same = top_ids[:64] == ref_ids
+    tied = ref_scores.gather(1, top_pos[:64]) == ref_s
+    share = float((same | tied).float().mean())
+    kernel_scores = quant_scores(qt[:64], codes, scale, zero, metric="l2")
+    ties = []
+    for qi, j in (tied & ~same).nonzero().tolist():
+        rows = [int(top_pos[qi, j])]
+        rows.append(int((ids == ref_ids[qi, j]).nonzero()[0, 0]))
+        x64 = codes[rows].double() * scale.double() + zero.double()
+        q64 = qt[qi].double()
+        exact = 2 * (x64 @ q64) - q64 @ q64 - (x64 * x64).sum(1)
+        tie = {"query": qi, "rank": j, "ids": [int(ids[r]) for r in rows],
+               "plain": [float(ref_scores[qi, r]) for r in rows],
+               "kernel": [float(kernel_scores[qi, r]) for r in rows],
+               "float64": exact.tolist()}
+        ties.append(tie)
+        log(f"int8 scan: query {qi} rank {j}: the kernel's row "
+            f"{tie['ids'][0]} and the plain version's row {tie['ids'][1]} "
+            f"tie in the plain scores {tie['plain']}; kernel "
+            f"{tie['kernel']}, float64 {tie['float64']}")
     ids_np = top_ids.cpu().numpy()
     rec = recall_at(ids_np, truth)
     out = {"rows": int(codes.shape[0]), "stored_rows": int((ids >= 0).sum()),
-           "seconds": dt, "recall@10": rec, "ids_equal_plain_64": share}
+           "seconds": dt, "scan_seconds": scan_s, "recall@10": rec,
+           "ids_equal_plain_64": share,
+           "ids_equal_plain_64_by_position": float(same.float().mean()),
+           "ties": ties}
     log(f"int8 brute-force scan (quant_scores over {out['rows']} code rows):"
-        f" recall@10 {rec:.4f}, {dt * 1e3:.1f} ms with top-k, top-10 equal "
-        f"to the plain version's on 64 queries {share:.4f}")
+        f" recall@10 {rec:.4f}, {dt * 1e3:.1f} ms with top-k, the scan "
+        f"alone {scan_s * 1e3:.2f} ms, top-10 equal to the plain version's "
+        f"on 64 queries {share:.4f} (by position "
+        f"{out['ids_equal_plain_64_by_position']:.4f})")
     if ids_np.shape != truth.shape or not bool(torch.isfinite(top_s).all()) \
             or share < IDS_EQUAL_MIN:
         raise AssertionError(f"int8 brute-force scan malformed or off its "

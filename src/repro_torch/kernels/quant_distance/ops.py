@@ -38,8 +38,10 @@ def _library():
 def quant_scores_cuda(q: torch.Tensor, codes: torch.Tensor,
                       scale: torch.Tensor, zero: torch.Tensor, *,
                       metric: str) -> torch.Tensor:
-    """Launch ``csrc/quant_distance.cu`` (one block per tile of 64
-    queries x 64 rows); same contract as :func:`quant_scores_ref`. q
+    """Launch ``csrc/quant_distance.cu`` (bf16 tensor cores, the query
+    side split in three pieces; a persistent grid of warp-specialized
+    blocks of 128 queries that walk tiles of 64 rows); same contract as
+    :func:`quant_scores_ref`. q
     [B, d] float32, codes [n, d] int8, scale and zero [d] float32, all
     contiguous on one CUDA device; any B, n, d >= 1. Returns [B, n]
     float32."""

@@ -14,8 +14,8 @@ inputs to 1e-4 of the largest |y| (and of the largest |state|): both sum
 in float32, in another order, and the decays are exponentials of
 differences of float32 prefix sums that reach |cum| ~ 10^3 in a chunk.
 The int8 distance scan agrees with its plain version to rtol/atol 1e-5
-where it sums d <= 16 float32 products (both dequantize the same way and
-sum in another order); over several 32-wide slices of d it is held to
+where it sums d <= 16 products (both dequantize the same way and sum in
+another order); over longer rows (d = 128 to 2,048) it is held to
 1e-5 of the largest |score|, as in ``chip_smoke.py``, since two orders of
 a longer sum can part by more than 1e-5 at a score near zero. The
 serving engine on the card returns the ids of the same engine on the CPU
@@ -269,9 +269,17 @@ def test_search_on_card_matches_cpu(cuda):
 
 
 # (B, n, d): the reference kernel test's shapes, the ragged 37 x 53 and
-# shapes that are not multiples of the 64 x 64 tile or the 32-wide slice
+# shapes that are not multiples of the 64 x 64 tile or the 32-wide slice;
+# then B and n across the 128 x 128 tiles of the tensor-core kernel
 QUANT_SHAPES = [(5, 24, 8), (130, 70, 16), (1, 8, 4), (37, 53, 8),
-                (65, 129, 3), (1, 1, 1)]
+                (65, 129, 3), (1, 1, 1), (130, 300, 16), (257, 129, 8)]
+# longer sums, held to 1e-5 of the largest |score|: d off the 16-column
+# k-step (130, two 128-column slices, the second ragged), the kNN-LM width
+# (2,048, sixteen slices), the main path's d = 128 with B and n off the
+# tiles, and a d past the 64 slices whose scale and zero the kernel holds
+# at once (8,320)
+QUANT_WIDE_SHAPES = [(129, 257, 130), (33, 65, 2048), (200, 300, 128),
+                     (1, 5, 2048), (3, 5, 8320)]
 
 
 def _quant_case(cuda, b, n, d):
@@ -305,6 +313,16 @@ def test_quant_kernel_over_several_slices(cuda, metric):
     q, codes, scale, zero = _quant_case(cuda, 70, 200, 130)
     got = quant_scores_cuda(q, codes, scale, zero, metric=metric)
     want = quant_scores_ref(q, codes, scale, zero, metric=metric)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("metric", ("l2", "ip", "angular"))
+@pytest.mark.parametrize("shape", QUANT_WIDE_SHAPES, ids=str)
+def test_quant_kernel_on_wide_rows(cuda, shape, metric):
+    q, codes, scale, zero = _quant_case(cuda, *shape)
+    got = quant_scores_cuda(q, codes, scale, zero, metric=metric)
+    want = quant_scores_ref(q, codes, scale, zero, metric=metric)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 

@@ -1,0 +1,277 @@
+"""The algorithm of the port's int8 distance kernel
+(``csrc/quant_distance.cu``), mirrored in plain PyTorch and held against
+the JAX package on the CPU.
+
+``quant_scores_mirror`` runs the kernel's arithmetic: the scale folded
+into the query (``u = q * scale``), ``u`` split into three bf16 pieces,
+the int8 codes as bf16 values, d padded to a multiple of 16 with zero
+codes and zero pieces and cut into slices of 128 columns, the queries
+padded to blocks of 128 and the rows to tiles of 64, the ragged tiles
+masked on the way out. Each slice's accumulator starts from zero and
+sums, k-step (16 columns) by k-step, the pieces smallest first, each step
+one exact sum of 16 exact products rounded once to float32 (the mma's
+sum); the slices' sums are added in float32 in order. Then ``q.z`` is
+added, and ``|x|^2`` is summed from the rows rounded as the plain version
+rounds them, before the per-metric epilogue (angular multiplies by the
+reciprocals of the norms). ``codes_to_bf16_bits`` is the kernel's
+conversion of a code to bf16 bits (a byte permute, two masks and a bf16
+subtraction). Both are test-only mirrors, not used by the port.
+
+Tolerances: the kernel family's own. Against the JAX oracle and its numpy
+twin, 1e-5 of the largest |score| everywhere (``chip_smoke.QUANT_TOL``),
+and elementwise rtol = atol = 1e-5 on the reference test's shapes and the
+card test's ``QUANT_SHAPES``, where d <= 16 (float32 sums in another
+order; at d = 130 and above, two float32 orders part by more than 1e-5 of
+a score near zero, so the wide shapes are held to the first gate only).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quant import QuantParams
+from repro.kernels.quant_distance import quant_scores_np, quant_scores_ref
+from repro.kernels.quant_distance.kernel import quant_distance_pallas
+from repro_torch.kernels.quant_distance import \
+    quant_scores as torch_quant_scores
+
+METRICS = ("l2", "ip", "angular")
+TILE_Q = 128   # queries of a block
+TILE_N = 64    # rows of a tile
+SLICE = 128    # columns of d a stage holds
+STEP = 16      # columns of an mma k-step
+EPS = 1e-12
+
+
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split3(u: torch.Tensor):
+    """The kernel's split: u1 = bf16(u), u2 = bf16(u - u1), u3 = bf16(u -
+    u1 - u2), each remainder taken in float32."""
+    u1 = bf16(u)
+    r = u - u1
+    u2 = bf16(r)
+    return u1, u2, bf16(r - u2)
+
+
+def codes_to_bf16_bits(c: np.ndarray) -> np.ndarray:
+    """int8 codes -> bf16 bits as the kernel makes them: with 0x43 as the
+    high byte, (0x43, c & 0x7f) is 128 + (c & 0x7f) and (0x43, c & 0x80)
+    is 128 or 256 by c's sign bit; their bf16 difference is c."""
+    byte = np.asarray(c, np.int8).view(np.uint8).astype(np.uint32)
+    raw = 0x4300 | byte
+    lo7 = (raw & 0xFF7F) << 16
+    sub = (raw & 0xFF80) << 16
+    diff = lo7.view(np.float32) - sub.view(np.float32)   # exact
+    return (diff.view(np.uint32) >> 16).astype(np.uint16)
+
+
+def _pad(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    out = torch.zeros((rows, cols), dtype=t.dtype)
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def quant_scores_mirror(q, codes, scale, zero, *, metric: str):
+    """q [B, d] float32, codes [n, d] int8, scale and zero [d] -> [B, n]
+    float32, as the kernel computes it."""
+    q = torch.as_tensor(np.asarray(q, np.float32))
+    c8 = torch.as_tensor(np.asarray(codes, np.int8))
+    scale = torch.as_tensor(np.asarray(scale, np.float32))
+    zero = torch.as_tensor(np.asarray(zero, np.float32))
+    b, d = q.shape
+    n = c8.shape[0]
+    dp = -(-d // STEP) * STEP
+    bp, np_ = -(-b // TILE_Q) * TILE_Q, -(-n // TILE_N) * TILE_N
+    u = _pad(q * scale, bp, dp)
+    pieces = split3(u)
+    cb = bf16(_pad(c8, np_, dp).to(torch.float32))    # exact
+    total = torch.zeros((bp, np_), dtype=torch.float32)
+    for k0 in range(0, dp, SLICE):
+        acc = torch.zeros((bp, np_), dtype=torch.float32)
+        for ks in range(k0, min(k0 + SLICE, dp), STEP):
+            cols = slice(ks, ks + STEP)
+            for piece in pieces[::-1]:                 # u3, u2, u1
+                step = piece[:, cols].double() @ cb[:, cols].double().T
+                acc = (acc.double() + step).to(torch.float32)
+        total = total + acc          # the slices meet in float32, in order
+    qz = (q * zero).sum(dim=1)
+    dot = total[:b, :n] + qz[:, None]
+    if metric == "ip":
+        return dot
+    x_hat = c8.to(torch.float32) * scale + zero      # the plain rounding
+    halves = torch.zeros((2, n), dtype=torch.float32)
+    for k0 in range(0, d, SLICE):
+        for h in range(2):
+            cols = slice(k0 + 64 * h, min(k0 + 64 * h + 64, d))
+            halves[h] += (x_hat[:, cols] * x_hat[:, cols]).sum(dim=1)
+    xn = halves[0] + halves[1]
+    qn = (q * q).sum(dim=1)
+    if metric == "l2":
+        return (2.0 * dot - qn[:, None]) - xn[None, :]
+    if metric == "angular":      # reciprocals of the norms, multiplied
+        return (dot * (1.0 / (torch.sqrt(qn) + EPS))[:, None]
+                * (1.0 / (torch.sqrt(xn) + EPS))[None, :])
+    raise ValueError(metric)
+
+
+def _reference_case(b, n, d, seed):
+    """The JAX kernel test's inputs (tests/test_kernel_quant_distance.py)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32) * \
+        rng.uniform(0.5, 3.0, size=(1, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    params = QuantParams.from_data(x)
+    return q, params.quantize(x), params.scale, params.zero
+
+
+def _card_case(b, n, d, seed):
+    """The card test's recipe (tests/test_torch_cuda.py ``_quant_case``),
+    drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, d)) * (0.5 + 2.5 * rng.random((1, d)))
+         ).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    lo, hi = x.min(axis=0), x.max(axis=0)
+    scale = np.maximum((hi - lo) / np.float32(254.0),
+                       np.float32(1e-12)).astype(np.float32)
+    zero = ((hi + lo) / np.float32(2.0)).astype(np.float32)
+    codes = np.clip(np.round((x - zero) / scale), -127, 127).astype(np.int8)
+    return q, codes, scale, zero
+
+
+def _jax_scores(q, codes, scale, zero, metric):
+    return np.asarray(quant_scores_ref(
+        jnp.asarray(q), jnp.asarray(codes), jnp.asarray(scale),
+        jnp.asarray(zero), metric=metric))
+
+
+def _hold(got, want, *, elementwise: bool):
+    got = np.asarray(got)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-5 * float(np.abs(want).max()), err
+    if elementwise:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b,n,d", [(5, 24, 8), (130, 70, 16), (1, 8, 4),
+                                   (37, 53, 8)])
+def test_mirror_matches_jax_on_reference_cases(metric, b, n, d):
+    q, codes, scale, zero = _reference_case(b, n, d, seed=b * n + d)
+    got = quant_scores_mirror(q, codes, scale, zero, metric=metric)
+    _hold(got, _jax_scores(q, codes, scale, zero, metric), elementwise=True)
+    _hold(got, quant_scores_np(q, codes, scale, zero, metric=metric),
+          elementwise=True)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_mirror_matches_pallas_kernel_blocked(metric):
+    """The Pallas kernel in interpret mode, on the reference's blocked
+    launch shape."""
+    q, codes, scale, zero = _reference_case(37, 53, 8, seed=7)
+    want = np.asarray(quant_distance_pallas(
+        jnp.asarray(q), jnp.asarray(codes), jnp.asarray(scale),
+        jnp.asarray(zero), metric=metric, interpret=True, block_q=16,
+        block_n=16))
+    _hold(quant_scores_mirror(q, codes, scale, zero, metric=metric), want,
+          elementwise=True)
+
+
+# the card test's QUANT_SHAPES: held elementwise (d <= 16)
+CARD_SHAPES = [(5, 24, 8), (130, 70, 16), (1, 8, 4), (37, 53, 8),
+               (65, 129, 3), (1, 1, 1), (130, 300, 16), (257, 129, 8)]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=str)
+def test_mirror_on_card_shapes(metric, shape):
+    b, n, d = shape
+    q, codes, scale, zero = _card_case(b, n, d, seed=b * n + d)
+    _hold(quant_scores_mirror(q, codes, scale, zero, metric=metric),
+          quant_scores_np(q, codes, scale, zero, metric=metric),
+          elementwise=True)
+
+
+# shapes that cross the tiles and slices: B and n off the 128 tiles, d off
+# the 16-column step (130: two slices, the second ragged), the kNN-LM
+# width (2,048: 16 slices), and the main path's d = 128 in one slice
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("shape", [(129, 257, 130), (33, 65, 2048),
+                                   (200, 300, 128)], ids=str)
+def test_mirror_on_wide_rows(metric, shape):
+    b, n, d = shape
+    q, codes, scale, zero = _card_case(b, n, d, seed=b + n + d)
+    got = quant_scores_mirror(q, codes, scale, zero, metric=metric)
+    _hold(got, quant_scores_np(q, codes, scale, zero, metric=metric),
+          elementwise=False)
+    _hold(got, _jax_scores(q, codes, scale, zero, metric),
+          elementwise=False)
+
+
+def test_mirror_on_offset_rows():
+    """Rows far from the origin (every zero-point large against the
+    range): the folded q.z and the folded sum meet at the end."""
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(300, 128)) * 0.1 + 4.0).astype(np.float32)
+    q = rng.normal(size=(40, 128)).astype(np.float32)
+    params = QuantParams.from_data(x)
+    codes = params.quantize(x)
+    for metric in METRICS:
+        _hold(quant_scores_mirror(q, codes, params.scale, params.zero,
+                                  metric=metric),
+              quant_scores_np(q, codes, params.scale, params.zero,
+                              metric=metric), elementwise=False)
+
+
+def test_every_int8_value_is_exact_in_bf16():
+    c = np.arange(-128, 128, dtype=np.int8)
+    as_bf16 = bf16(torch.as_tensor(c, dtype=torch.float32))
+    assert torch.equal(as_bf16, torch.as_tensor(c, dtype=torch.float32))
+    bits = codes_to_bf16_bits(c).astype(np.uint32) << 16
+    np.testing.assert_array_equal(bits.view(np.float32),
+                                  c.astype(np.float32))
+
+
+@pytest.mark.parametrize("log10_scale", (-20, -6, 0, 6, 20))
+def test_three_pieces_carry_every_bit(log10_scale):
+    """Exact wherever the third piece is a normal number (|u| above about
+    1e-33; float32 queries times scales stay far above that)."""
+    rng = np.random.default_rng(log10_scale + 40)
+    u = torch.as_tensor((rng.normal(size=4096) * 10.0 ** log10_scale)
+                        .astype(np.float32))
+    u1, u2, u3 = split3(u)
+    total = u1.double() + u2.double() + u3.double()
+    assert torch.equal(total, u.double())
+    # and a piece times any code is exact in float32
+    c = torch.arange(-128, 128, dtype=torch.float32)
+    for piece in (u1, u2, u3):
+        prod = piece[:, None] * c[None, :]
+        assert torch.equal(prod.double(), piece.double()[:, None]
+                           * c.double()[None, :])
+
+
+def test_two_pieces_would_not_do():
+    """u1 + u2 leaves up to 2^-17 of u behind, more than float32's
+    rounding of u: the third piece is needed."""
+    rng = np.random.default_rng(3)
+    u = torch.as_tensor(rng.normal(size=4096).astype(np.float32))
+    u1, u2, _ = split3(u)
+    rel = ((u1.double() + u2.double() - u.double()).abs()
+           / u.double().abs()).max()
+    assert 2.0 ** -24 < float(rel) <= 2.0 ** -16
+
+
+def test_port_plain_version_agrees_with_mirror():
+    """On the CPU the port's entry point takes the plain version; the
+    mirror and it agree to the family's gate."""
+    q, codes, scale, zero = _card_case(70, 200, 130, seed=9)
+    for metric in METRICS:
+        plain = torch_quant_scores(
+            torch.as_tensor(q), torch.as_tensor(codes),
+            torch.as_tensor(scale), torch.as_tensor(zero), metric=metric)
+        _hold(quant_scores_mirror(q, codes, scale, zero, metric=metric),
+              plain.numpy(), elementwise=False)
