@@ -52,7 +52,20 @@ Phases, each raising on failure (the script then exits non-zero):
      every future resolves exactly once, the storm's ids equal the
      fault-free run's query by query, and recall@10 is held to phase 4's;
      the beam kernel's device time a launch is read from a profiled
-     float32 batch.
+     float32 batch;
+  8. the index store, online updates, the paper's API and tenancy:
+     phase 4's index published to an ``IndexStore`` and loaded back on
+     the card (its float32 and int8 ids, int8 grid and codes equal to
+     phase 4's); a 1,024-row index built here, published, updated
+     (``add_items`` of 128 rows from two clusters, ``set_item_tags``,
+     ``remove_items`` of 32 ids) and checked live, then recovered by
+     ``IndexStore.load`` (segment checksums and ids equal to the live
+     index's) and ``ServingEngine.from_store`` (recall within 0.02 of the
+     pre-crash engine's; int8 codes equal); Listing 1's ``Coordinator``
+     over the first store (ids equal to phase 7's), a hot swap onto the
+     second under an open client, and a ``TenantManager`` whose budget
+     holds one of the two tenants: the evicted tenant's device memory
+     comes back and its re-pinned ids are identical.
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -62,6 +75,7 @@ first row); the last line is ``{"ok": true, "device": {...}}``. Full results als
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -914,6 +928,7 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
     truth_f = gpu_truth(x, q, k, alive=(tags & 1) != 0)
     runs = {"float32": dict(), "int8": dict(quantize=True, rerank_factor=4),
             "filtered": dict(filter_tags=1)}
+    answers = {}
     for name, kw in runs.items():
         before = launch_counts()
         t0 = time.perf_counter()
@@ -930,6 +945,7 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
         dt = (time.perf_counter() - t0) / reps
         if not np.array_equal(ids, ids2):
             raise AssertionError(f"{name}: repeated search differs")
+        answers[name] = (ids, scores)
         after = launch_counts()
         rec = recall_at(ids, truth_f if name == "filtered" else truth)
         res[name] = {"recall@10": rec, "qps": n_queries / dt,
@@ -961,7 +977,8 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
         raise AssertionError("float32 recall@10 below 0.90")
     if res["int8"]["recall@10"] < res["float32"]["recall@10"] - 0.01:
         raise AssertionError("int8 recall@10 more than 0.01 below float32")
-    state = {"index": index, "queries": q, "truth": truth}
+    state = {"index": index, "queries": q, "truth": truth,
+             "answers": answers}
     return res, state
 
 
@@ -1503,7 +1520,6 @@ def serving_path(state: dict, recall_single_host: float) -> dict:
     float32, int8 with rerank factor 4, then a seeded fault storm under
     the Monitor. The launch counts are set to 0 at its start and read at
     its end."""
-    import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.faults import FaultSchedule
@@ -1561,6 +1577,7 @@ def serving_path(state: dict, recall_single_host: float) -> dict:
     finally:
         eng.shutdown()
     free = res.pop("fault_free_ids")
+    state["engine_ids"] = free
     same = bool(np.array_equal(stormy["ids"], free))
     res["storm"] = {"seed": STORM_SEED,
                     "events": [dict(step=e.step, action=e.action,
@@ -1596,6 +1613,415 @@ def serving_path(state: dict, recall_single_host: float) -> dict:
     if res["launches"]["beam_search"] <= 0:
         raise AssertionError(f"phase 7 never launched the beam kernel: "
                              f"{res['launches']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the index store, online updates, the paper's API and tenancy
+# ---------------------------------------------------------------------------
+
+# 8b's index: clustered_vectors(UPDATES_N, 128, UPDATES_CLUSTERS) with the
+# paper's PyramidConfig() except the cuts below. Every insert and removal
+# rebuilds the shards it touches with the host builder (about 35 ms a row
+# at M = 32, ef_construction = 100), and 8b and 8c rebuild them five
+# times (the live apply, IndexStore.load, two from_store and the hot
+# swap's load), so N is cut until the phase fits its 120 s.
+UPDATES_N = 1024
+UPDATES_CLUSTERS = 32
+UPDATES_CUTS = {
+    "n": "4,096 -> 1,024: the rebuilds of the touched shards, five times "
+         "over, at ~35 ms a row must fit the phase's 120 s",
+    "meta_size": "1,000 -> 64: four k-means centres a shard; 1,000 "
+                 "centres cannot be drawn from 1,024 rows",
+    "sample_size": "20,000 -> 1,024: the whole set (N < 20,000)"}
+UPDATES_ADD = 128          # rows drawn from two of the set's clusters
+UPDATES_REMOVE = 32        # ids removed: half just added, half built
+UPDATES_TAG = 4            # the tag bit written by set_item_tags
+PHASE8_LIMIT_S = 120.0
+# queries of 8c's Listing 1 run and of each tenant's search
+API_QUERIES = 256
+
+
+def checksums(index) -> list:
+    from repro_torch.store import content_checksum, graph_to_arrays
+    return [content_checksum(graph_to_arrays(g)) for g in index.subs]
+
+
+def timed_rebuilds():
+    """Wraps the host builder that ``repro_torch.core.updates`` rebuilds
+    shards with: returns (a list that each rebuild appends ``[rows,
+    seconds]`` to, the function that undoes the wrap)."""
+    from repro_torch.core import hnsw
+    inner = hnsw.build_hnsw
+    seen = []
+
+    def timed(data, *args, **kw):
+        t0 = time.perf_counter()
+        g = inner(data, *args, **kw)
+        seen.append([int(len(data)), time.perf_counter() - t0])
+        return g
+    hnsw.build_hnsw = timed
+    return seen, lambda: setattr(hnsw, "build_hnsw", inner)
+
+
+def store_round_trip(state: dict, root: str):
+    """8a: phase 4's index published and loaded back on the card; its
+    searches, int8 grid and int8 codes must equal phase 4's. Returns the
+    results and the loaded index."""
+    import torch
+    from repro_torch.core.distributed import search_single_host
+    from repro_torch.store import IndexStore
+    index, q = state["index"], state["queries"]
+    k = state["truth"].shape[1]
+    out = {}
+    t0 = time.perf_counter()
+    vid = IndexStore(root).publish(index)
+    out["publish_s"] = time.perf_counter() - t0
+    out["version_bytes"] = IndexStore(root).version_bytes(vid)
+    t0 = time.perf_counter()
+    loaded = IndexStore(root).load(device="cuda")
+    out["load_s"] = time.perf_counter() - t0
+    out["checksums_equal"] = checksums(loaded) == checksums(index)
+    ids, scores, _ = search_single_host(loaded, q, k)
+    ids4, scores4 = state["answers"]["float32"]
+    out["float32_ids_equal"] = float((ids == ids4).all(axis=1).mean())
+    out["float32_max_score_diff"] = float(np.abs(scores - scores4).max())
+    ids8, _, _ = search_single_host(loaded, q, k, quantize=True,
+                                    rerank_factor=4)
+    out["int8_ids_equal"] = float(
+        (ids8 == state["answers"]["int8"][0]).all(axis=1).mean())
+    out["grid_equal"] = (loaded.quant_params().to_manifest()
+                         == index.quant_params().to_manifest())
+    out["int8_codes_equal"] = bool(torch.equal(
+        loaded.arena("int8").data, index.arena("int8").data))
+    log(f"8a store round trip: published {vid} ({out['version_bytes']} "
+        f"bytes) in {out['publish_s']:.2f} s, loaded on the card in "
+        f"{out['load_s']:.2f} s; checksums equal {out['checksums_equal']}, "
+        f"float32 ids equal to phase 4's on {out['float32_ids_equal']:.4f} "
+        f"of queries (max score diff {out['float32_max_score_diff']:.3g}), "
+        f"int8 {out['int8_ids_equal']:.4f}, grid equal "
+        f"{out['grid_equal']}, int8 codes equal {out['int8_codes_equal']}")
+    if not (out["checksums_equal"] and out["float32_ids_equal"] == 1.0
+            and out["float32_max_score_diff"] <= 1e-5
+            and out["int8_ids_equal"] == 1.0 and out["grid_equal"]
+            and out["int8_codes_equal"]):
+        raise AssertionError(f"8a: the loaded index differs from phase "
+                             f"4's: {out}")
+    return out, loaded
+
+
+def engine_recall(eng, q, truth, k: int):
+    from repro_torch.core.client import gather_arrays
+    ids, _ = gather_arrays(eng.submit(q, k=k), k, timeout=120.0)
+    return ids, recall_at(ids, truth)
+
+
+def online_updates(root: str):
+    """8b: a small index built here, published, updated (an insert from
+    two clusters, tags, a removal), checked live, then "crashed" and
+    recovered three ways from its store. Returns the results and what
+    8c reads: the recovered index, its queries, truth and ids, and the
+    ``from_store`` engine's answers."""
+    import torch
+    from repro_torch.build import build_pyramid_index_parallel
+    from repro_torch.common.config import PyramidConfig
+    from repro_torch.core.distributed import search_single_host
+    from repro_torch.core.updates import add_items, remove_items, set_item_tags
+    from repro_torch.data.synthetic import clustered_vectors, query_set
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.store import IndexStore
+    n, d, k = UPDATES_N, 128, 10
+    x = clustered_vectors(n, d, UPDATES_CLUSTERS, seed=3)
+    cfg = PyramidConfig(num_shards=16, meta_size=64, sample_size=n)
+    out = {"n": n, "d": d, "clusters": UPDATES_CLUSTERS,
+           "config": cfg.__dict__, "cuts": UPDATES_CUTS}
+    t0 = time.perf_counter()
+    index = build_pyramid_index_parallel(x, cfg, workers=os.cpu_count() or 1)
+    out["build_s"] = time.perf_counter() - t0
+    out["sub_sizes"] = [g.n for g in index.subs]
+    t0 = time.perf_counter()
+    IndexStore(root).publish(index)
+    out["publish_s"] = time.perf_counter() - t0
+
+    # rows near two of the set's clusters (their centres redrawn from the
+    # set's seed, as clustered_vectors draws them)
+    centres = np.random.default_rng(3).normal(size=(UPDATES_CLUSTERS, d))
+    rng = np.random.default_rng(11)
+    pick = rng.choice(UPDATES_CLUSTERS, size=2, replace=False)
+    new = (centres[np.repeat(pick, UPDATES_ADD // 2)]
+           + 0.15 * rng.normal(size=(UPDATES_ADD, d))).astype(np.float32)
+    new_ids = np.arange(n, n + UPDATES_ADD)
+    rebuilds, unwrap = timed_rebuilds()
+    try:
+        t0 = time.perf_counter()
+        add_items(index, new)
+        out["add_s"] = time.perf_counter() - t0
+        out["add_rebuilds"] = list(rebuilds)
+        tagged = new_ids[::3]
+        t0 = time.perf_counter()
+        set_item_tags(index, tagged, UPDATES_TAG)
+        out["tags_s"] = time.perf_counter() - t0
+        # half the removals are just added (tagged among them), half are
+        # built rows of the shards the insert touched
+        touched = [s for s, g in enumerate(index.subs)
+                   if np.isin(new_ids, g.ids).any()]
+        built_ids = np.concatenate([index.subs[s].ids for s in touched])
+        built_ids = np.sort(built_ids[built_ids < n])
+        gone = np.concatenate([
+            new_ids[rng.choice(UPDATES_ADD, UPDATES_REMOVE // 2,
+                               replace=False)],
+            rng.choice(built_ids, UPDATES_REMOVE // 2, replace=False)])
+        del rebuilds[:]
+        t0 = time.perf_counter()
+        remove_items(index, gone)
+        out["remove_s"] = time.perf_counter() - t0
+        out["remove_rebuilds"] = list(rebuilds)
+    finally:
+        unwrap()
+    out["touched_shards"] = touched
+    out["delta_records"] = len(index.delta_log())
+
+    # the live index
+    alive = np.ones(n + UPDATES_ADD, bool)
+    alive[gone] = False
+    corpus = np.concatenate([x, new])
+    q = np.concatenate([query_set(x, 256, seed=12), new[alive[n:]]])
+    truth = gpu_truth(corpus, q, k, alive=alive)
+    ids, _, _ = search_single_host(index, q, k)
+    kept = new_ids[alive[n:]]
+    own_first = ids[256:, 0] == kept
+    out["own_row_first"] = float(own_first.mean())
+    out["removed_returned"] = int(np.isin(ids, gone).sum())
+    tagged_alive = set(np.setdiff1d(tagged, gone).tolist())
+    fids, _, _ = search_single_host(
+        index, corpus[sorted(tagged_alive)], k, filter_tags=UPDATES_TAG)
+    got = set(fids[fids >= 0].tolist())
+    stored = {int(i) for g in index.subs
+              for i, t in zip(g.ids, g.tags_or_zeros()) if t & UPDATES_TAG}
+    out["tag_filter_exact"] = got == tagged_alive == stored
+    out["recall_single_host"] = recall_at(ids, truth)
+    eng = ServingEngine(index, replicas=1)
+    try:
+        _, out["recall_engine_pre_crash"] = engine_recall(eng, q, truth, k)
+    finally:
+        eng.shutdown()
+    live_sums = checksums(index)
+    live_codes = index.arena("int8").data.clone()
+    log(f"8b online updates on {n} x {d} (16 shards of {out['sub_sizes']}):"
+        f" built in {out['build_s']:.1f} s; add {UPDATES_ADD} rows "
+        f"{out['add_s']:.1f} s (rebuilds [rows, s] {out['add_rebuilds']}),"
+        f" tags {out['tags_s']:.3f} s, remove {UPDATES_REMOVE} ids "
+        f"{out['remove_s']:.1f} s (rebuilds {out['remove_rebuilds']}); "
+        f"own row first {out['own_row_first']:.4f}, removed ids returned "
+        f"{out['removed_returned']}, tag filter exact "
+        f"{out['tag_filter_exact']}; recall@10 single host "
+        f"{out['recall_single_host']:.4f}, engine "
+        f"{out['recall_engine_pre_crash']:.4f}")
+    if not (out["own_row_first"] == 1.0 and out["removed_returned"] == 0
+            and out["tag_filter_exact"]):
+        raise AssertionError(f"8b: the live index after the updates is "
+                             f"wrong: {out}")
+
+    # the crash: the index and its engine are gone; recover from the store
+    del index, eng
+    rebuilds, unwrap = timed_rebuilds()
+    try:
+        t0 = time.perf_counter()
+        loaded = IndexStore(root).load(device="cuda")
+        out["replay_s"] = time.perf_counter() - t0
+        out["replay_rebuilds"] = list(rebuilds)
+        ids2, _, _ = search_single_host(loaded, q, k)
+        out["replay_checksums_equal"] = checksums(loaded) == live_sums
+        out["replay_ids_equal"] = float((ids2 == ids).all(axis=1).mean())
+        t0 = time.perf_counter()
+        eng = ServingEngine.from_store(root, replicas=1)
+        out["from_store_s"] = time.perf_counter() - t0
+        try:
+            eng_ids, out["recall_from_store"] = engine_recall(eng, q,
+                                                              truth, k)
+        finally:
+            eng.shutdown()
+        t0 = time.perf_counter()
+        engq = ServingEngine.from_store(root, replicas=1, quantize=True)
+        out["from_store_int8_s"] = time.perf_counter() - t0
+        try:
+            out["int8_codes_equal"] = bool(torch.equal(
+                engq.index.arena("int8").data, live_codes))
+        finally:
+            engq.shutdown()
+    finally:
+        unwrap()
+    log(f"8b recovery: IndexStore.load replayed {out['delta_records']} "
+        f"records in {out['replay_s']:.1f} s (rebuilds "
+        f"{out['replay_rebuilds']}); checksums equal "
+        f"{out['replay_checksums_equal']}, ids equal "
+        f"{out['replay_ids_equal']:.4f}; from_store "
+        f"{out['from_store_s']:.1f} s recall@10 "
+        f"{out['recall_from_store']:.4f} (pre-crash "
+        f"{out['recall_engine_pre_crash']:.4f}); from_store int8 "
+        f"{out['from_store_int8_s']:.1f} s, codes equal "
+        f"{out['int8_codes_equal']}")
+    if not (out["replay_checksums_equal"] and out["replay_ids_equal"] == 1.0
+            and abs(out["recall_from_store"]
+                    - out["recall_engine_pre_crash"]) <= RECALL_SLACK
+            and out["int8_codes_equal"]):
+        raise AssertionError(f"8b: recovery from the store differs from "
+                             f"the live index: {out}")
+    ids_b = set(int(i) for g in loaded.subs for i in g.ids)
+    return out, {"index": loaded, "queries": q, "truth": truth,
+                 "ids": ids_b, "engine_ids": eng_ids}
+
+
+def counter_series(registry, name: str) -> dict:
+    series = registry.snapshot()[name]["series"]
+    return {",".join(e["labels"].values()) or "all": e["value"]
+            for e in series}
+
+
+def api_and_tenancy(state: dict, root_a: str, root_b: str,
+                    index_a, updates: dict) -> dict:
+    """8c: Listing 1 over 8a's store, a hot swap onto 8b's store under an
+    open client, and two tenants (8a's index in float32, 8b's in int8)
+    under a budget that holds one at a time."""
+    import torch
+    from repro_torch.core.api import Brokers, Coordinator, QueryPara
+    from repro_torch.core.client import gather_arrays
+    from repro_torch.serving.tenancy import (TenantManager,
+                                             estimate_arena_bytes)
+    k = state["truth"].shape[1]
+    q = state["queries"][:API_QUERIES]
+    out = {}
+    with Brokers() as brokers:
+        t0 = time.perf_counter()
+        coord = Coordinator(brokers, root_a, "sift", "l2")
+        out["coordinator_start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = coord.execute_batch(q, QueryPara(k=k))
+        out["listing1_s"] = time.perf_counter() - t0
+        ids = np.stack([r.ids for r in res])
+        out["listing1_ids_equal_phase7"] = float(
+            (ids == state["engine_ids"][:API_QUERIES]).all(axis=1).mean())
+        client = brokers.open_client("sift", root_a, metric="l2")
+        t0 = time.perf_counter()
+        brokers.replace_index("sift", root_b)
+        out["hot_swap_s"] = time.perf_counter() - t0
+        qb, truth_b = updates["queries"], updates["truth"]
+        swapped, _ = gather_arrays(client.search_batch(qb, k=k), k, 120.0)
+        out["swap_ids_in_8b"] = bool(set(swapped[swapped >= 0].tolist())
+                                     <= updates["ids"])
+        out["swap_recall"] = recall_at(swapped, truth_b)
+        out["swap_recall_from_store"] = recall_at(updates["engine_ids"],
+                                                  truth_b)
+    log(f"8c Listing 1: Coordinator on 8a's store started in "
+        f"{out['coordinator_start_s']:.1f} s, {API_QUERIES} queries in "
+        f"{out['listing1_s']:.2f} s, ids equal to phase 7's on "
+        f"{out['listing1_ids_equal_phase7']:.4f}; hot swap onto 8b's store "
+        f"{out['hot_swap_s']:.1f} s, the open client's ids all in 8b "
+        f"{out['swap_ids_in_8b']}, recall@10 {out['swap_recall']:.4f} "
+        f"(8b's from_store engine {out['swap_recall_from_store']:.4f})")
+    if not (out["listing1_ids_equal_phase7"] == 1.0 and out["swap_ids_in_8b"]
+            and abs(out["swap_recall"] - out["swap_recall_from_store"])
+            <= RECALL_SLACK):
+        raise AssertionError(f"8c: the paper's API disagrees: {out}")
+
+    big, small = index_a, updates["index"]
+    est = {"big": estimate_arena_bytes(big),
+           "small": estimate_arena_bytes(small, quantize=True)}
+    budget = est["big"] + est["small"] - 1
+    out["tenancy"] = {"estimates": est, "budget_bytes": budget}
+    tm = TenantManager(budget)
+    try:
+        t0 = time.perf_counter()
+        tm.create("big", big)
+        tm.create("small", small, activate=False, quantize=True)
+        admit_s = time.perf_counter() - t0
+        ids1, _ = gather_arrays(tm.client("big").search_batch(q, k=k), k,
+                                120.0)
+        big_bytes = tm.stats()["tenants"]["big"]["bytes"]
+        # the engines closed above sit in reference cycles until a
+        # collection: collect them first, so the fall below is big's own
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        gather_arrays(tm.client("small").search_batch(
+            updates["queries"][:API_QUERIES], k=k), k, 120.0)
+        swap_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        live_after_small = {n: t["live"] for n, t in
+                            tm.stats()["tenants"].items()}
+        t0 = time.perf_counter()
+        ids2, _ = gather_arrays(tm.client("big").search_batch(q, k=k), k,
+                                120.0)
+        repin_s = time.perf_counter() - t0
+        st = tm.stats()
+        ten = out["tenancy"]
+        ten.update(
+            admit_big_s=admit_s, touch_small_s=swap_s, repin_big_s=repin_s,
+            big_arena_vector_bytes=big_bytes,
+            memory_allocated_before=mem_before,
+            memory_allocated_after=mem_after,
+            memory_fall=mem_before - mem_after,
+            live_after_small=live_after_small,
+            repin_ids_identical=bool(np.array_equal(ids1, ids2)),
+            tenants=st["tenants"],
+            admissions=counter_series(tm.obs,
+                                      "pyramid_tenant_admissions_total"),
+            evictions=counter_series(tm.obs,
+                                     "pyramid_tenant_evictions_total"),
+            rejections=counter_series(tm.obs,
+                                      "pyramid_tenant_rejections_total"))
+    finally:
+        tm.shutdown()
+    log(f"8c tenancy: budget {budget} bytes (estimates {est}); touching "
+        f"small evicted big {not ten['live_after_small']['big']} in "
+        f"{ten['touch_small_s']:.2f} s, memory_allocated "
+        f"{mem_before} -> {mem_after} (fell {ten['memory_fall']}, big's "
+        f"arena vector bytes {big_bytes}); re-pin {repin_s:.2f} s, ids "
+        f"identical {ten['repin_ids_identical']}; admissions "
+        f"{ten['admissions']} evictions {ten['evictions']} rejections "
+        f"{ten['rejections']}")
+    if not (ten["live_after_small"] == {"big": False, "small": True}
+            and ten["memory_fall"] >= big_bytes
+            and ten["repin_ids_identical"]):
+        raise AssertionError(f"8c: tenancy failed: {ten}")
+    return out
+
+
+def store_path(state: dict) -> dict:
+    """Phase 8: the store round trip at phase 4's size (8a), online
+    updates and crash recovery on a small index (8b), and the paper's API
+    and tenancy over both stores (8c). The launch counts are set to 0 at
+    its start and read at its end."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    res = {}
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        root_a, root_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        res["round_trip"], index_a = store_round_trip(state, root_a)
+        t0 = time.perf_counter()
+        res["updates"], updates = online_updates(root_b)
+        res["updates"]["step_s"] = time.perf_counter() - t0
+        res["api"] = api_and_tenancy(state, root_a, root_b, index_a,
+                                     updates)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = launch_counts()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 8: launches {res['launches']}; {res['phase_s']:.1f} s")
+    missing = [name for name in PYRAMID_KERNELS if res["launches"][name] <= 0]
+    if missing:
+        raise AssertionError(f"phase 8 never launched {missing}: "
+                             f"{res['launches']}")
+    if res["phase_s"] > PHASE8_LIMIT_S:
+        raise AssertionError(f"phase 8 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE8_LIMIT_S:.0f} s")
     del state["index"]
     torch.cuda.empty_cache()
     return res
@@ -1651,6 +2077,7 @@ def main() -> int:
     result["ssm_path"] = lm_path(dev, "mamba2-780m")
     result["serving"] = serving_path(
         state, result["main_path"]["float32"]["recall@10"])
+    result["store"] = store_path(state)
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -1662,7 +2089,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(result[phase]["launches"][name] for phase in
                             ("main_path", "lm_path", "ssm_path",
-                             "serving")),
+                             "serving", "store")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

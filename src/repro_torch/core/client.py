@@ -29,8 +29,8 @@ Design notes:
 
 The module does not import the serving engine at import time: the
 client is duck-typed over any object with ``submit / scale / stats /
-shutdown``. ``Brokers`` (``repro.core.api``), which binds clients to
-named indexes and stores, is not ported yet.
+shutdown``. ``Brokers`` (``repro_torch.core.api``) binds clients to
+named indexes and stores.
 """
 from __future__ import annotations
 

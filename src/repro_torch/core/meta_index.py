@@ -4,7 +4,9 @@
 A :class:`PyramidIndex` holds the meta-HNSW over k-means centers, the
 partition label of every meta vertex, and w sub-HNSWs whose ids are
 global. It carries its device: the arena, the meta-HNSW tensors and the
-tag words are built there once and cached.
+tag words are built there once and cached. An index published to an
+``repro_torch.store.IndexStore`` is attached to that version's delta
+log, which ``repro_torch.core.updates`` journals through.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class PyramidIndex:
         self.device = torch.device(self.device)
         self.invalidate_device_cache()
         self._quant_params = None
+        self._delta_log = None
 
     @property
     def num_shards(self) -> int:
@@ -111,14 +114,51 @@ class PyramidIndex:
                 np.asarray(self.part_of_center, np.int32)).to(self.device)
         return self._part_of_center
 
+    def sub_arrays(self, i: int) -> H.HNSWArrays:
+        """Device view of shard ``i``: a slice of the shared arena (shape
+        [n_pad, ...]; read ``subs[i].n`` for the item count)."""
+        return self.arena().shard_view(i)
+
     def invalidate_device_cache(self) -> None:
-        """Drop the cached device tensors (the int8 grid stays frozen)."""
+        """Drop the cached device tensors after an in-place mutation of
+        ``subs``/``meta`` (``repro_torch.core.updates``). The int8 grid
+        stays frozen, so a rebuilt int8 arena requantizes the mutated
+        data onto the same grid."""
         self._arena = {}
         self._meta_arrays = None
         self._part_of_center = None
         self._rerank_table = None
         self._tags_arena = None
         self._tags_host = None
+
+    def delta_log(self):
+        """The append-only update journal this index is attached to, or
+        ``None``. Set by ``repro_torch.store.IndexStore`` on publish and
+        load; ``repro_torch.core.updates`` writes through it."""
+        return self._delta_log
+
+    def attach_delta_log(self, log) -> None:
+        self._delta_log = log
+
+    _RUNTIME_STATE = ("_arena", "_meta_arrays", "_part_of_center",
+                      "_rerank_table", "_tags_arena", "_tags_host",
+                      "_delta_log")
+
+    def __getstate__(self):
+        # device caches and the store attachment are runtime state: never
+        # pickled. The int8 grid travels (frozen semantic state), and the
+        # device as a string, so a pickle holds no tensor
+        state = {k: v for k, v in self.__dict__.items()
+                 if k not in self._RUNTIME_STATE}
+        state["device"] = str(self.device)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.device = torch.device(self.device)
+        self.__dict__.setdefault("_quant_params", None)
+        self.invalidate_device_cache()
+        self._delta_log = None
 
 
 def _sample(x: np.ndarray, n_sample: int, rng) -> np.ndarray:

@@ -4,6 +4,7 @@ serving engine (port of ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --tokens 6 \
         [--retrieval [--quantize] [--rerank-factor 4]] \
+        [--tenant NAME [--tenant-budget-mb 256]] \
         [--trace-out trace.json] [--metrics-port 0] [--device cpu]
 
 The model is the ``.reduced()`` variant of ``--arch`` (as in the
@@ -12,11 +13,12 @@ on the CUDA device unless ``--device cpu`` is given. With
 ``--retrieval`` the datastore is served by a ``ServingEngine`` through
 ``open_datastore_client`` (int8 with ``--quantize``), and every decode
 step looks the last token's hidden state up through ``knn_probs(...,
-client=...)`` and interpolates, as the reference launcher does.
-``--trace-out`` writes a Chrome trace of the run, ``--metrics-port``
-serves ``/metrics`` and ``/stats`` while it runs. ``--tenant`` and
-``--tenant-budget-mb`` need the tenancy manager, which is not ported
-yet, and exit with a message.
+client=...)`` and interpolates, as the reference launcher does. With
+``--tenant`` the datastore is admitted as that named tenant through a
+``TenantManager`` whose budget is ``--tenant-budget-mb``, and looked up
+through the manager's client. ``--trace-out`` writes a Chrome trace of
+the run, ``--metrics-port`` serves ``/metrics`` and ``/stats`` while it
+runs.
 """
 from __future__ import annotations
 
@@ -40,12 +42,6 @@ from repro_torch.serving.retrieval import (build_datastore, hidden_states,
 
 log = get_logger(__name__)
 
-# options of the reference launcher that need the tenancy manager
-# (``TenantManager`` needs ``Brokers`` of ``core/api.py``, whose index
-# loading needs the store; ROADMAP.md section 1, "The paper's API and
-# tenancy")
-NOT_PORTED = ("tenant", "tenant_budget_mb")
-
 
 def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     """Run the launcher; returns the generated ids [batch, tokens]."""
@@ -64,6 +60,14 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     ap.add_argument("--rerank-factor", type=int, default=4,
                     help="with --quantize: exact-rerank the top "
                          "rerank_factor * k quantized candidates")
+    ap.add_argument("--tenant", default=None, metavar="NAME",
+                    help="serve the retrieval datastore as this named "
+                         "tenant through a TenantManager (admission-"
+                         "controlled device-memory budget, LRU "
+                         "eviction; see repro_torch.serving.tenancy)")
+    ap.add_argument("--tenant-budget-mb", type=float, default=256.0,
+                    help="with --tenant: the manager's total device-"
+                         "memory budget for tenant arenas, in MiB")
     ap.add_argument("--lam", type=float, default=0.3)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome trace_event JSON of the run "
@@ -75,15 +79,7 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "plain PyTorch versions of the kernels)")
-    not_ported = ("not yet ported: it needs the tenancy manager "
-                  "(ROADMAP.md section 1, \"The paper's API and "
-                  "tenancy\")")
-    ap.add_argument("--tenant", metavar="NAME", help=not_ported)
-    ap.add_argument("--tenant-budget-mb", type=float, help=not_ported)
     args = ap.parse_args(argv)
-    for name in NOT_PORTED:
-        if getattr(args, name) is not None:
-            ap.exit(2, f"--{name.replace('_', '-')} is {not_ported}\n")
 
     dev = resolve_device(args.device)
     tracer = Tracer() if args.trace_out else None
@@ -119,10 +115,27 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
                 with span("serve.build_datastore"):
                     ds = build_datastore(params, cfg, [corpus], pyr,
                                          device=dev)
-                    ds_client = stack.enter_context(open_datastore_client(
-                        ds, quantize=args.quantize,
-                        rerank_factor=args.rerank_factor,
-                        registry=registry, tracer=tracer))
+                    if args.tenant:
+                        from repro_torch.serving.tenancy import (
+                            TenantManager)
+                        tm = stack.enter_context(TenantManager(
+                            int(args.tenant_budget_mb * 2**20),
+                            registry=registry, device=dev))
+                        tm.create(args.tenant, ds.index,
+                                  quantize=args.quantize,
+                                  rerank_factor=args.rerank_factor,
+                                  tracer=tracer)
+                        ds_client = tm.client(args.tenant)
+                        log.info("[serve] tenant %r admitted: %s",
+                                 args.tenant, tm.stats()["tenants"])
+                        if server is not None:
+                            server.add_stats_provider("tenancy", tm.stats)
+                    else:
+                        ds_client = stack.enter_context(
+                            open_datastore_client(
+                                ds, quantize=args.quantize,
+                                rerank_factor=args.rerank_factor,
+                                registry=registry, tracer=tracer))
                 stats = ds_client.stats()
                 log.info(
                     "[serve] datastore ready: %d entries, served by %d "

@@ -66,7 +66,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.utils import nearest_rank
 from repro_torch.core import filters as F
 from repro_torch.core import hnsw as H
@@ -766,16 +766,24 @@ class ServingEngine:
 
     @classmethod
     def from_store(cls, store_path: str, *, version: Optional[str] = None,
-                   replay_delta: bool = True, **engine_kw
+                   replay_delta: bool = True, device: DeviceLike = "cuda",
+                   **engine_kw
                    ) -> "ServingEngine":
-        """Recover an engine from a published index store (the
-        reference's ``repro.store.IndexStore``). The store is not ported
-        yet: it is the slice "Online updates and the index store" of
-        ROADMAP.md, section 1."""
-        raise NotImplementedError(
-            "ServingEngine.from_store needs the index store, which is not "
-            "ported yet (ROADMAP.md section 1, \"Online updates and the "
-            "index store\")")
+        """Recover an engine from a published
+        :class:`repro_torch.store.IndexStore` version (default: the
+        latest), its index loaded on ``device``.
+
+        This is the crash-recovery path: an engine lost with its host
+        reopens the last *published* index and replays the version's
+        append-only delta log, so every update that happened after the
+        publish is served again. ``quantize=True`` (via ``engine_kw``)
+        reopens onto the manifest's frozen int8 grid — no re-derivation,
+        and replayed inserts requantize bit-identically.
+        """
+        from repro_torch.store import IndexStore
+        index = IndexStore(store_path).load(
+            version=version, replay_delta=replay_delta, device=device)
+        return cls(index, **engine_kw)
 
     def _spawn(self, shard: int, replica: int) -> Executor:
         name = f"exec-s{shard}-r{replica}"

@@ -358,6 +358,80 @@ def test_engine_on_card_matches_cpu(cuda):
                                    rtol=1e-5, atol=1e-4)
 
 
+def _card_and_cpu_twin():
+    x = clustered_vectors(1200, 16, 12, seed=3)
+    cfg = PyramidConfig(num_shards=4, meta_size=48, sample_size=800,
+                        branching_factor=2, max_degree=12,
+                        max_degree_upper=6, ef_construction=40,
+                        ef_search=50, kmeans_iters=6)
+    cpu = build_pyramid_index(x, cfg, device="cpu")
+    arrays = lambda g: {f: getattr(g, f)  # noqa: E731
+                        for f in convert.GRAPH_FIELDS}
+    card = convert.index_from_arrays(
+        cfg.__dict__, arrays(cpu.meta), cpu.part_of_center,
+        [arrays(g) for g in cpu.subs], build_stats=dict(cpu.build_stats),
+        device="cuda")
+    return x, cpu, card
+
+
+def _checksums(index):
+    from repro_torch.store import content_checksum, graph_to_arrays
+    return [content_checksum(graph_to_arrays(g)) for g in index.subs]
+
+
+def _updates(index, x):
+    """An insert beside shard 0's rows (tagged), a tag write and a
+    removal of inserted and old ids; the checksums after each step."""
+    from repro_torch.core.updates import (add_items, remove_items,
+                                          set_item_tags)
+    rows = x[np.sort(index.subs[0].ids)[:24]] + 0.01
+    n = len(x)
+    steps = []
+    add_items(index, rows, tags=np.arange(24, dtype=np.int64) % 2)
+    steps.append(_checksums(index))
+    set_item_tags(index, np.arange(n, n + 24, 3), 4)
+    steps.append(_checksums(index))
+    remove_items(index, np.concatenate([np.arange(n, n + 24, 5),
+                                        index.subs[1].ids[:5]]))
+    steps.append(_checksums(index))
+    return steps
+
+
+def test_updates_on_card_match_cpu_twin(cuda):
+    """The same update sequence on a card index (routing through the
+    beam kernel) and on its CPU twin rebuilds the same shards: every
+    segment checksum is equal after every step."""
+    x, cpu, card = _card_and_cpu_twin()
+    reset_launch_counts()
+    on_card = _updates(card, x)
+    assert launch_counts()["beam_search"] > 0
+    assert on_card == _updates(cpu, x)
+    q = query_set(x, 48, seed=4)
+    ids_card, _, _ = TD.search_single_host(card, q, 10)
+    ids_cpu, _, _ = TD.search_single_host(cpu, q, 10)
+    assert (ids_card == ids_cpu).mean() >= 0.99
+
+
+def test_publish_on_card_loads_on_cpu(cuda, tmp_path):
+    """A store published from a card index, with a delta log journaled on
+    the card, loads on the CPU to the same graphs and the CPU twin's ids,
+    and on the card to the live card index's ids."""
+    from repro_torch.store import IndexStore
+    x, cpu, card = _card_and_cpu_twin()
+    IndexStore(str(tmp_path)).publish(card)
+    _updates(card, x)
+    _updates(cpu, x)
+    q = query_set(x, 48, seed=5)
+    on_cpu = IndexStore(str(tmp_path)).load(device="cpu")
+    assert _checksums(on_cpu) == _checksums(card)
+    np.testing.assert_array_equal(TD.search_single_host(on_cpu, q, 10)[0],
+                                  TD.search_single_host(cpu, q, 10)[0])
+    on_card = IndexStore(str(tmp_path)).load()
+    assert on_card.device.type == "cuda"
+    np.testing.assert_array_equal(TD.search_single_host(on_card, q, 10)[0],
+                                  TD.search_single_host(card, q, 10)[0])
+
+
 # (B, S, H, KV, hd): G = 1, 2, 3 and 8; S not a multiple of any tile; the
 # long ones take several spans (and, at S = 32,768, spans of several
 # tiles); 64 x 8 = 512 (batch row, kv head) pairs

@@ -17,10 +17,14 @@ from repro_torch.convert import index_from_arrays
 from repro_torch.core import distributed as TD
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.core.meta_index import PyramidIndex, build_pyramid_index
+from repro_torch.core.api import Brokers, GraphConstructor
 from repro_torch.launch import serve
+from repro_torch.launch.build_index import load_index
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.tenancy import TenantManager
+from repro_torch.store import IndexStore
 from repro_torch.serving.retrieval import build_datastore
 
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
@@ -38,6 +42,10 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.obs.trace", "repro_torch.obs.stats_server",
             "repro_torch.obs.logs",
             "repro_torch.kernels.quant_distance.ops"} <= set(MODULES)
+    assert {"repro_torch.store", "repro_torch.store.format",
+            "repro_torch.store.store", "repro_torch.core.updates",
+            "repro_torch.core.api", "repro_torch.serving.tenancy",
+            "repro_torch.launch.build_index"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -53,7 +61,7 @@ def test_every_module_imports_without_jax_or_reference():
     assert out.stdout.startswith("ok")
 
 
-def test_entry_points_need_the_card_unless_asked(monkeypatch):
+def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.random.default_rng(0).normal(size=(40, 4)).astype(np.float32)
     cfg = PyramidConfig(num_shards=2, meta_size=8, sample_size=40,
@@ -85,3 +93,17 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
         build_datastore(params, lm, [toks], cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--tokens", "2"])
+    IndexStore(str(tmp_path)).publish(index)   # host work only
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IndexStore(str(tmp_path)).load()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_index(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine.from_store(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Brokers()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GraphConstructor(x, "l2", str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TenantManager(1 << 20)
+    assert IndexStore(str(tmp_path)).load(device="cpu").device.type == "cpu"

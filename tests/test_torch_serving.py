@@ -18,6 +18,7 @@ every engine is closed by a context manager, and no wait is longer than
 30 s.
 """
 import contextlib
+import copy
 import dataclasses
 import sys
 import threading
@@ -372,7 +373,11 @@ def test_futures_timeout_and_errors():
         list(as_completed([SearchFuture(8)], timeout=0.01))
 
 
-def test_shutdown_fails_inflight_futures_and_from_store_is_unported(indexes):
+def test_shutdown_fails_inflight_futures_and_from_store_is_unported(
+        indexes, fault_free, tmp_path):
+    """Shutdown fails in-flight futures. ``from_store``, unported when
+    this test was named, now recovers an engine from a published store:
+    it raises on an empty one and answers with the fault-free ids."""
     x, _, port = indexes
     with serving(port, replicas=1, auto_restart=False) as eng:
         for name in list(eng.executors):
@@ -382,8 +387,16 @@ def test_shutdown_fails_inflight_futures_and_from_store_is_unported(indexes):
     for f in futs:
         with pytest.raises(EngineShutdownError):
             f.result(timeout=WAIT)
-    with pytest.raises(NotImplementedError, match="store"):
-        ServingEngine.from_store("unused")
+    from repro_torch.store import IndexStore, StoreError
+    with pytest.raises(StoreError, match="no published"):
+        ServingEngine.from_store(str(tmp_path), device="cpu")
+    IndexStore(str(tmp_path)).publish(copy.deepcopy(port))
+    q, free = fault_free
+    with serving(port, cls=lambda _, **kw: ServingEngine.from_store(
+            str(tmp_path), device="cpu", **kw), replicas=2, hedge=False,
+            auto_restart=False) as eng:
+        np.testing.assert_array_equal(_dense(_collect(eng.submit(q, k=K))),
+                                      free)
 
 
 def test_concurrent_clients_get_only_their_own_results(indexes,
