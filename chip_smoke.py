@@ -24,7 +24,12 @@ Phases, each raising on failure (the script then exits non-zero):
      device memory and every kernel's launch count; and a brute-force
      scan of the whole int8
      arena through ``quant_scores`` (the int8 distance kernel's entry
-     point), held against its plain version on a slice of the queries;
+     point), its top 10 held against float64 scores of the dequantized
+     rows on a slice of the queries (the plain float32 version's share
+     recorded beside); and the LSH baseline (``build_lsh``,
+     ``search_lsh`` with the paper's Fig. 9 parameters: recall@10, QPS
+     beside Pyramid's, its rerank through the top-k kernel, ids equal to
+     the CPU's on a slice of the queries);
   5. kNN-LM serving of qwen3-1.7b at full width (bf16, synthetic weights
      from a seeded generator): first a float32 check that greedy decode
      from the prefill cache matches the full forward step by step; then
@@ -65,7 +70,17 @@ Phases, each raising on failure (the script then exits non-zero):
      over the first store (ids equal to phase 7's), a hot swap onto the
      second under an open client, and a ``TenantManager`` whose budget
      holds one of the two tenants: the evicted tenant's device memory
-     comes back and its re-pinned ids are identical.
+     comes back and its re-pinned ids are identical;
+  9. online maintenance on the second store (``Compactor``): its delta
+     log folded into a new version, which loads back with nothing to
+     replay and the same segment checksums and ids; a cycle killed at its
+     commit point (``publish``) and recovered to the crash-free state,
+     each record applied once; then, through
+     ``Brokers.attach_maintenance`` under an open client, a shard split,
+     a cycle at the default factors, a centroid refresh and the default
+     factors again, each followed by a hot swap: every in-flight future resolves once and recall@10
+     stays within 0.02 of the engine's before maintenance (under 100 s,
+     it raises past that).
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -668,12 +683,14 @@ def kernels_vs_plain(dev, n: int) -> dict:
     # run K's two shapes, then the k-means assignments of phase 4's build
     # (the 20,000-row sample against 1,000 centres) and of phases 5 and 6's
     # datastores (400 sampled keys against 32 centres at qwen3-1.7b's and
-    # mamba2-780m's widths, DATASTORE_PYR)
+    # mamba2-780m's widths, DATASTORE_PYR), then the LSH baseline's rerank
+    # (one query against its largest candidate list, k = 10)
     for b, centres, d, k, metric in ((4096, 1000, 128, 1, "l2"),
                                      (4096, 1000, 128, 16, "ip"),
                                      (20_000, 1000, 128, 1, "l2"),
                                      (400, 32, 2048, 1, "l2"),
-                                     (400, 32, 1536, 1, "l2")):
+                                     (400, 32, 1536, 1, "l2"),
+                                     (1, 2048, 128, 10, "l2")):
         r = check_topk(dev, b, centres, d, k, metric)
         res["topk_distance"].append(r)
         log(f"topk_distance {r['shape']} {metric}: ids equal "
@@ -965,6 +982,7 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
             f"{res[name]['launches_per_batch']} device "
             f"{res[name]['device']}")
     res["int8_scan"] = int8_scan(index, q, k, truth)
+    res["lsh"] = lsh_baseline(x, q, k, truth, res["float32"]["qps"])
     res["launches"] = launch_counts()
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"main path launches {res['launches']} peak device memory "
@@ -985,16 +1003,23 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
 def int8_scan(index, q, k: int, truth) -> dict:
     """Brute force over the whole int8 arena through ``quant_scores``, the
     int8 distance kernel's entry point: every stored code row (pad rows
-    masked) against every query, then the top k. Its top k must equal
-    the plain version's on the first 64 queries, and its recall@10
-    against the float32 truth is recorded. A position counts as equal
-    when the kernel's row is the plain version's row there, or has exactly
-    the plain version's score there by the plain version's own scores: an
-    exact tie in its float32 scores, whose order ``torch.topk`` does not
-    define (the positional share alone is recorded beside)."""
+    masked) against every query, then the top k. Its recall@10 against
+    the float32 truth is recorded, and its top k on the first 64 queries
+    is held against the exact function the kernel approximates: float64
+    l2 scores (``2 x.q - |q|^2 - |x|^2``) of the code rows dequantized as
+    the plain version dequantizes them (``c * scale + zero`` rounded to
+    float32, the rows every implementation scores), so that only the sums
+    are exact. A position counts as equal when it holds the float64
+    ranking's row, or a row with exactly the float64 score there (an
+    exact tie: the arena stores one row twice). The share equal to the
+    plain float32 version is recorded beside it, with that version's own
+    exact-tie rule, its positional share, the ties and the misses: a
+    float32 sum misorders rows whose scores part by less than its
+    rounding."""
     import torch
     from repro_torch.kernels.quant_distance import (quant_scores,
                                                     quant_scores_ref)
+    from repro_torch.kernels.quant_distance.ref import dequantize
     arena = index.arena("int8")
     d = arena.data.shape[-1]
     codes = arena.data.reshape(-1, d)
@@ -1012,45 +1037,114 @@ def int8_scan(index, q, k: int, truth) -> dict:
         qt, codes, scale, zero, metric="l2")))
     _, scan_s = synced(lambda: quant_scores(qt, codes, scale, zero,
                                             metric="l2"))
+    # the exact reference: float64 sums over the float32 rows
+    x64 = dequantize(codes, scale, zero).double()
+    q64 = qt[:64].double()
+    exact = masked(2.0 * q64 @ x64.T - (q64 * q64).sum(dim=1)[:, None]
+                   - (x64 * x64).sum(dim=1)[None, :])
+    ex_ids, ex_s, _ = top(exact)
+    same64 = top_ids[:64] == ex_ids
+    tied64 = exact.gather(1, top_pos[:64]) == ex_s
+    share = float((same64 | tied64).float().mean())
+    # the plain float32 version, recorded beside
     ref_scores = masked(quant_scores_ref(qt[:64], codes, scale, zero,
                                          metric="l2"))
     ref_ids, ref_s, _ = top(ref_scores)
     same = top_ids[:64] == ref_ids
     tied = ref_scores.gather(1, top_pos[:64]) == ref_s
-    share = float((same | tied).float().mean())
     kernel_scores = quant_scores(qt[:64], codes, scale, zero, metric="l2")
-    ties = []
-    for qi, j in (tied & ~same).nonzero().tolist():
-        rows = [int(top_pos[qi, j])]
-        rows.append(int((ids == ref_ids[qi, j]).nonzero()[0, 0]))
-        x64 = codes[rows].double() * scale.double() + zero.double()
-        q64 = qt[qi].double()
-        exact = 2 * (x64 @ q64) - q64 @ q64 - (x64 * x64).sum(1)
-        tie = {"query": qi, "rank": j, "ids": [int(ids[r]) for r in rows],
-               "plain": [float(ref_scores[qi, r]) for r in rows],
-               "kernel": [float(kernel_scores[qi, r]) for r in rows],
-               "float64": exact.tolist()}
-        ties.append(tie)
-        log(f"int8 scan: query {qi} rank {j}: the kernel's row "
-            f"{tie['ids'][0]} and the plain version's row {tie['ids'][1]} "
-            f"tie in the plain scores {tie['plain']}; kernel "
-            f"{tie['kernel']}, float64 {tie['float64']}")
+
+    def pair(qi, j, other_ids):
+        rows = [int(top_pos[qi, j]),
+                int((ids == other_ids[qi, j]).nonzero()[0, 0])]
+        return {"query": qi, "rank": j, "ids": [int(ids[r]) for r in rows],
+                "plain": [float(ref_scores[qi, r]) for r in rows],
+                "kernel": [float(kernel_scores[qi, r]) for r in rows],
+                "float64": [float(exact[qi, r]) for r in rows]}
+    ties = [pair(qi, j, ref_ids)
+            for qi, j in (tied & ~same).nonzero().tolist()]
+    misses = [pair(qi, j, ref_ids)
+              for qi, j in (~(same | tied)).nonzero().tolist()]
+    misses64 = [pair(qi, j, ex_ids)
+                for qi, j in (~(same64 | tied64)).nonzero().tolist()]
+    for name, rows in (("tie in the plain scores", ties),
+                       ("miss against the plain version", misses),
+                       ("miss against float64", misses64)):
+        for p in rows:
+            log(f"int8 scan: {name}: query {p['query']} rank {p['rank']}: "
+                f"the kernel's row {p['ids'][0]}, the other's "
+                f"{p['ids'][1]}; plain {p['plain']}, kernel {p['kernel']}, "
+                f"float64 {p['float64']}")
     ids_np = top_ids.cpu().numpy()
     rec = recall_at(ids_np, truth)
     out = {"rows": int(codes.shape[0]), "stored_rows": int((ids >= 0).sum()),
            "seconds": dt, "scan_seconds": scan_s, "recall@10": rec,
-           "ids_equal_plain_64": share,
+           "ids_equal_float64_64": share,
+           "ids_equal_float64_64_by_position": float(same64.float().mean()),
+           "ids_equal_plain_64": float((same | tied).float().mean()),
            "ids_equal_plain_64_by_position": float(same.float().mean()),
-           "ties": ties}
+           "ties": ties, "misses_plain": misses, "misses_float64": misses64}
     log(f"int8 brute-force scan (quant_scores over {out['rows']} code rows):"
         f" recall@10 {rec:.4f}, {dt * 1e3:.1f} ms with top-k, the scan "
-        f"alone {scan_s * 1e3:.2f} ms, top-10 equal to the plain version's "
-        f"on 64 queries {share:.4f} (by position "
-        f"{out['ids_equal_plain_64_by_position']:.4f})")
+        f"alone {scan_s * 1e3:.2f} ms; top-10 on 64 queries equal to "
+        f"float64's {share:.5f} (by position "
+        f"{out['ids_equal_float64_64_by_position']:.5f}), to the plain "
+        f"float32 version's {out['ids_equal_plain_64']:.5f} (by position "
+        f"{out['ids_equal_plain_64_by_position']:.5f})")
     if ids_np.shape != truth.shape or not bool(torch.isfinite(top_s).all()) \
             or share < IDS_EQUAL_MIN:
-        raise AssertionError(f"int8 brute-force scan malformed or off its "
-                             f"plain version: {out}")
+        raise AssertionError(f"int8 brute-force scan malformed or off the "
+                             f"float64 scores: {out}")
+    return out
+
+
+# the LSH baseline as the paper's Fig. 9 comparison runs it
+# (benchmarks/fig9_comparison.py:50-51; num_shards is the Pyramid path's w)
+LSH_PARAMS = dict(metric="l2", num_shards=16, num_tables=8, num_bits=10,
+                  width=3.0)
+LSH_CHECK_QUERIES = 64
+
+
+def lsh_baseline(x, q, k: int, truth, pyramid_qps: float) -> dict:
+    """The third system of the paper's Fig. 9 on phase 4's rows:
+    ``build_lsh`` (host hashing), then ``search_lsh`` over every query,
+    whose exact rerank is the top-k scan kernel on the card (one launch a
+    query over its candidates). Its answers must be well formed with the
+    exact scores of the rows returned, and its ids equal to the CPU
+    ``search_lsh`` (plain versions) on the first 64 queries; recall@10
+    against the float32 truth and QPS beside Pyramid's are recorded."""
+    import torch
+    from repro_torch.core.lsh import build_lsh, search_lsh
+    from repro_torch.kernels import launch_counts
+    t0 = time.perf_counter()
+    lsh = build_lsh(x, **LSH_PARAMS)
+    build_s = time.perf_counter() - t0
+    search_lsh(lsh, q[:4], k)                    # warm
+    before = launch_counts()["topk_distance"]
+    (ids, scores), dt = synced(lambda: search_lsh(lsh, q, k))
+    launches = launch_counts()["topk_distance"] - before
+    check_answer("lsh", ids, scores, x, q, k)
+    m = LSH_CHECK_QUERIES
+    ids_c, scores_c = search_lsh(lsh, q[:m], k, device="cpu")
+    agree = compare("lsh on the card against the CPU",
+                    torch.as_tensor(ids[:m]), torch.as_tensor(ids_c),
+                    torch.as_tensor(scores[:m]), torch.as_tensor(scores_c))
+    out = {"params": LSH_PARAMS, "build_s": build_s, "search_s": dt,
+           "qps": len(q) / dt, "pyramid_float32_qps": pyramid_qps,
+           "recall@10": recall_at(ids, truth),
+           "topk_distance_launches": launches,
+           "ids_equal_cpu_64": agree["ids_equal"],
+           "max_abs_err_cpu_64": agree["max_abs_err"],
+           "padded_slots": int((ids < 0).sum())}
+    log(f"LSH baseline ({LSH_PARAMS}): built in {build_s:.1f} s; "
+        f"{len(q)} queries in {dt:.2f} s, QPS {out['qps']:.1f} (Pyramid "
+        f"float32 {pyramid_qps:.1f}), recall@10 {out['recall@10']:.4f}, "
+        f"top-k launches {launches}, ids equal to the CPU's on {m} queries "
+        f"{agree['ids_equal']:.4f}, padded slots {out['padded_slots']}")
+    answered = int((ids[:, 0] >= 0).sum())   # a query with candidates
+    if launches != answered:
+        raise AssertionError(f"lsh: {launches} top-k launches for "
+                             f"{answered} queries with candidates")
     return out
 
 
@@ -1989,11 +2083,12 @@ def api_and_tenancy(state: dict, root_a: str, root_b: str,
     return out
 
 
-def store_path(state: dict) -> dict:
+def store_path(state: dict):
     """Phase 8: the store round trip at phase 4's size (8a), online
     updates and crash recovery on a small index (8b), and the paper's API
-    and tenancy over both stores (8c). The launch counts are set to 0 at
-    its start and read at its end."""
+    and tenancy over both stores (8c); then phase 9 on 8b's store, before
+    the stores are removed. The launch counts are set to 0 at each
+    phase's start and read at its end. Returns both phases' results."""
     import shutil
     import tempfile
     import torch
@@ -2010,20 +2105,326 @@ def store_path(state: dict) -> dict:
         res["updates"]["step_s"] = time.perf_counter() - t0
         res["api"] = api_and_tenancy(state, root_a, root_b, index_a,
                                      updates)
+        res["launches"] = launch_counts()
+        res["phase_s"] = time.perf_counter() - t_phase
+        log(f"phase 8: launches {res['launches']}; {res['phase_s']:.1f} s")
+        missing = [name for name in PYRAMID_KERNELS
+                   if res["launches"][name] <= 0]
+        if missing:
+            raise AssertionError(f"phase 8 never launched {missing}: "
+                                 f"{res['launches']}")
+        if res["phase_s"] > PHASE8_LIMIT_S:
+            raise AssertionError(f"phase 8 took {res['phase_s']:.1f} s, "
+                                 f"over its {PHASE8_LIMIT_S:.0f} s")
+        del index_a, state["index"]
+        torch.cuda.empty_cache()
+        maintenance = maintenance_path(root_b, updates, res["updates"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return res, maintenance
+
+
+# ---------------------------------------------------------------------------
+# phase 9: online maintenance on 8b's store
+# ---------------------------------------------------------------------------
+
+PHASE9_LIMIT_S = 100.0
+# phase 9 runs on 8b's index and store: 8b's cut of scale holds
+MAINT_CUTS = {"n": "8b's 1,024 rows plus its 128 inserts (UPDATES_CUTS: "
+                   "every fold, split and refresh rebuilds shards with "
+                   "the host builder at 15 to 35 ms a row)"}
+MAINT_INSERT = 8           # rows of 9b's insert record
+MAINT_TAG = 8              # the tag bit of 9b's tag record
+MAINT_QUERIES = 64         # queries in flight across each hot swap
+
+
+class SimulatedCrash(RuntimeError):
+    pass
+
+
+def cycle_stages(tracer) -> list:
+    """Seconds of each compaction cycle and of its stages, from the
+    ``compaction.*`` spans the Compactor writes."""
+    spans = tracer.snapshot()
+    out = []
+    for cyc in (sp for sp in spans if sp.name == "compaction.cycle"):
+        stages = {"cycle": cyc.duration,
+                  "version_from": cyc.attrs.get("version_from"),
+                  "version_to": cyc.attrs.get("version_to"),
+                  "folded": cyc.attrs.get("folded")}
+        for sp in spans:
+            if sp.parent_id == cyc.span_id:
+                stage = sp.name.split(".", 1)[1]
+                stages[stage] = stages.get(stage, 0.0) + sp.duration
+        out.append(stages)
+    return out
+
+
+def stored_ids(index) -> np.ndarray:
+    return np.concatenate([g.ids for g in index.subs])
+
+
+def compaction(root: str, updates: dict, replay_s: float):
+    """9a: 8b's recovered index (attached to its version's delta log of
+    three records) folded into a new version, then the store loaded back
+    on the card: nothing to replay, every checksum and float32 id equal
+    to the pre-compaction index's, the old log truncated to 0."""
+    from repro_torch.core.distributed import search_single_host
+    from repro_torch.obs import Tracer
+    from repro_torch.store import Compactor, IndexStore
+    live, q = updates["index"], updates["queries"]
+    k = updates["truth"].shape[1]
+    store = IndexStore(root)
+    old_vid = store.latest()
+    out = {"records": len(live.delta_log()), "version_from": old_vid}
+    live_sums = checksums(live)
+    ids_live, _, _ = search_single_host(live, q, k)
+    tracer = Tracer()
+    comp = Compactor(store, live, rebalance=False, tracer=tracer)
+    t0 = time.perf_counter()
+    out["version_to"] = comp.run_once(force=True)
+    out["cycle_s"] = time.perf_counter() - t0
+    out["stages_s"] = cycle_stages(tracer)
+    rebuilds, unwrap = timed_rebuilds()
+    try:
+        t0 = time.perf_counter()
+        loaded = IndexStore(root).load(device="cuda")
+        out["load_s"] = time.perf_counter() - t0
+    finally:
+        unwrap()
+    out["load_rebuilds"] = len(rebuilds)
+    out["replayed"] = len(loaded.delta_log())
+    out["replay_s_8b"] = replay_s
+    out["old_log_records"] = len(store.reader(old_vid).delta_log())
+    out["checksums_equal"] = checksums(loaded) == live_sums
+    ids, _, _ = search_single_host(loaded, q, k)
+    out["ids_equal"] = float((ids == ids_live).all(axis=1).mean())
+    log(f"9a compaction: folded {out['records']} records of {old_vid} into "
+        f"{out['version_to']} in {out['cycle_s']:.1f} s (stages "
+        f"{out['stages_s']}); IndexStore.load {out['load_s']:.2f} s against "
+        f"8b's replay {replay_s:.1f} s, replayed {out['replayed']} records "
+        f"({out['load_rebuilds']} shard rebuilds); checksums equal "
+        f"{out['checksums_equal']}, ids equal {out['ids_equal']:.4f}; "
+        f"old log {out['old_log_records']} records")
+    if not (out["replayed"] == 0 and out["load_rebuilds"] == 0
+            and out["old_log_records"] == 0 and out["checksums_equal"]
+            and out["ids_equal"] == 1.0 and out["records"] == 3):
+        raise AssertionError(f"9a: compaction changed the index or left "
+                             f"records to replay: {out}")
+    return out, loaded
+
+
+def crash_window(root: str, index):
+    """9b: a cheap tag record and an insert of MAINT_INSERT rows, then a
+    cycle killed at the commit point ("publish": the new version's rename
+    has landed, the old log is not truncated, CURRENT not flipped).
+    Recovery from the store must equal a crash-free cycle's state (the
+    live index the records were applied to) with each record applied
+    once."""
+    from repro_torch.obs import Tracer
+    from repro_torch.store import Compactor, IndexStore
+
+    def boom(step):
+        if step == "publish":
+            raise SimulatedCrash(step)
+    store = IndexStore(root)
+    old_vid = store.latest()
+    tracer = Tracer()
+    comp = Compactor(store, index, rebalance=False, fault_hook=boom,
+                     tracer=tracer)
+    ids_before = stored_ids(index)
+    tagged = np.sort(ids_before)[:MAINT_INSERT]
+    # rows beside the smallest shard of at least MAINT_INSERT rows: one
+    # cheap rebuild
+    s = min((g.n, i) for i, g in enumerate(index.subs)
+            if g.n >= MAINT_INSERT)[1]
+    rng = np.random.default_rng(21)
+    rows = index.subs[s].data[rng.choice(index.subs[s].n, MAINT_INSERT,
+                                         replace=False)]
+    new = (rows + 0.01 * rng.normal(size=rows.shape)).astype(np.float32)
+    t0 = time.perf_counter()
+    comp.set_item_tags(tagged, MAINT_TAG)
+    comp.add_items(new)
+    out = {"records_s": time.perf_counter() - t0, "shard": s,
+           "version_from": old_vid}
+    live = comp.index
+    new_ids = np.setdiff1d(stored_ids(live), ids_before)
+    live_sums = checksums(live)
+    t0 = time.perf_counter()
+    try:
+        comp.run_once(force=True)
+        raise AssertionError("9b: the cycle did not reach its publish")
+    except SimulatedCrash:
+        out["crashed_after_s"] = time.perf_counter() - t0
+    out["stages_s"] = cycle_stages(tracer)
+    t0 = time.perf_counter()
+    recovered = IndexStore(root).load(device="cuda")
+    out["recover_s"] = time.perf_counter() - t0
+    out["version_recovered"] = IndexStore(root).latest()
+    out["replayed"] = len(recovered.delta_log())
+    out["stale_log_records"] = len(store.reader(old_vid).delta_log())
+    got = stored_ids(recovered)
+    out["checksums_equal"] = checksums(recovered) == live_sums
+    # the same stored ids as the live index (8b's build stores a row twice
+    # where a partition got no centre), each inserted id once
+    out["ids_once"] = bool(
+        np.array_equal(np.sort(got), np.sort(stored_ids(live)))
+        and new_ids.size == MAINT_INSERT
+        and all(int((got == i).sum()) == 1 for i in new_ids))
+    tags = {int(i): int(t) for g in recovered.subs
+            for i, t in zip(g.ids, g.tags_or_zeros())}
+    out["tags_applied"] = all(tags[int(i)] == MAINT_TAG for i in tagged)
+    log(f"9b crash at publish: tag and insert records in "
+        f"{out['records_s']:.1f} s (shard {s}); the cycle raised after "
+        f"{out['crashed_after_s']:.1f} s; recovered {out['version_recovered']}"
+        f" in {out['recover_s']:.2f} s, replayed {out['replayed']} records "
+        f"({old_vid}'s log still holds {out['stale_log_records']}, never "
+        f"replayed); checksums equal to the crash-free state "
+        f"{out['checksums_equal']}, each record once {out['ids_once']}, "
+        f"tags applied {out['tags_applied']}")
+    if not (out["checksums_equal"] and out["ids_once"]
+            and out["tags_applied"] and out["replayed"] == 0
+            and out["version_recovered"] != old_vid):
+        raise AssertionError(f"9b: recovery after a crash at publish is "
+                             f"not the crash-free state: {out}")
+    return out
+
+
+def maintenance_cycle(brokers, comp, client, q, truth_ids, k: int,
+                      name: str) -> dict:
+    """One maintenance cycle under an open client: MAINT_QUERIES futures
+    in flight across the hot swap must each resolve once; after it, the
+    client's engine serves the new version and its recall@10 (and
+    ``search_single_host``'s on the new index) is recorded."""
+    from repro_torch.core.client import gather_arrays
+    from repro_torch.core.distributed import search_single_host
+    from repro_torch.store import IndexStore
+    completions = {}
+
+    def done(fut):
+        completions[fut.query_id] = completions.get(fut.query_id, 0) + 1
+    futs = client.search_batch(q[:MAINT_QUERIES], k)
+    for f in futs:
+        f.add_done_callback(done)
+    ops = len(comp.rebalance_ops)
+    t0 = time.perf_counter()
+    vid = comp.run_once(force=True)
+    out = {"cycle_s": time.perf_counter() - t0, "version": vid,
+           "op": list(comp.rebalance_ops[-1]) if len(comp.rebalance_ops)
+           > ops else None}
+    gather_arrays(futs, k, 120.0)
+    out["futures_once"] = (sorted(completions) == sorted(
+        f.query_id for f in futs) and all(c == 1 for c in
+                                          completions.values()))
+    eng = brokers.get_engine("maint")
+    out["engine_on_new_version"] = bool(
+        eng.index is comp.index
+        and eng.w == IndexStore(comp.store.root).reader(vid).num_shards)
+    ids, _ = gather_arrays(client.search_batch(q, k), k, 120.0)
+    out["ids_in_new_version"] = bool(np.isin(
+        ids[ids >= 0], stored_ids(comp.index)).all())
+    out["recall"] = recall_at(ids, truth_ids)
+    ids_s, _, _ = search_single_host(comp.index, q, k)
+    out["recall_single_host"] = recall_at(ids_s, truth_ids)
+    out["sub_sizes"] = [g.n for g in comp.index.subs]
+    out["maintenance_stats"] = eng.stats()["maintenance"]
+    log(f"9c {name}: op {out['op']}, {vid} in {out['cycle_s']:.1f} s; "
+        f"futures once {out['futures_once']}, engine on the new version "
+        f"{out['engine_on_new_version']}, client ids in it "
+        f"{out['ids_in_new_version']}; recall@10 {out['recall']:.4f} "
+        f"(single host {out['recall_single_host']:.4f}); shard sizes "
+        f"{out['sub_sizes']}; stats()['maintenance'] "
+        f"{out['maintenance_stats']}")
+    return out
+
+
+def rebalance_and_refresh(root: str, q) -> dict:
+    """9c: ``Brokers.attach_maintenance`` on an engine serving the store,
+    with a client open: a cycle whose split factor splits the largest
+    splittable shard, one with the default factors, one centroid refresh
+    (k-means++ and a rebuild of every shard), and one more with the
+    default factors. Recall@10 after each hot swap must stay within
+    RECALL_SLACK of the engine's before maintenance."""
+    from repro_torch.core.api import Brokers
+    from repro_torch.core.client import gather_arrays
+    from repro_torch.obs import Tracer
+    k = 10
+    out = {}
+    tracer = Tracer()
+    with Brokers() as brokers:
+        t0 = time.perf_counter()
+        client = brokers.open_client("maint", root, metric="l2")
+        out["start_s"] = time.perf_counter() - t0
+        index = brokers.get_engine("maint").index
+        rows = np.concatenate([g.data for g in index.subs])
+        ids_all = stored_ids(index)
+        truth_ids = ids_all[gpu_truth(rows, q, k)]
+        ids0, _ = gather_arrays(client.search_batch(q, k), k, 120.0)
+        out["recall_before"] = recall_at(ids0, truth_ids)
+        comp = brokers.attach_maintenance("maint", root, tracer=tracer)
+        # the largest shard plan_rebalance may split (two meta centres
+        # and eight rows at least)
+        sizes = [g.n for g in index.subs]
+        centres = np.bincount(np.asarray(index.part_of_center),
+                              minlength=len(sizes))
+        big = max(sizes[s] for s in range(len(sizes))
+                  if centres[s] >= 2 and sizes[s] >= 8)
+        comp.split_factor = 0.999 * big / (sum(sizes) / len(sizes))
+        out["split"] = maintenance_cycle(brokers, comp, client, q, truth_ids,
+                                         k, f"split (factor "
+                                            f"{comp.split_factor:.3f})")
+        comp.split_factor = 4.0
+        out["default"] = maintenance_cycle(brokers, comp, client, q,
+                                           truth_ids, k, "default factors")
+        comp.rebalance, comp.refresh_every = False, 1
+        out["refresh"] = maintenance_cycle(brokers, comp, client, q,
+                                           truth_ids, k, "centroid refresh")
+        # the refresh keeps w and may leave partitions without items: the
+        # default factors then merge the two smallest
+        comp.rebalance, comp.refresh_every = True, 0
+        out["after_refresh"] = maintenance_cycle(
+            brokers, comp, client, q, truth_ids, k,
+            "default factors after the refresh")
+    out["stages_s"] = cycle_stages(tracer)
+    cycles = [out[c] for c in ("split", "default", "refresh",
+                               "after_refresh")]
+    op = out["split"]["op"]
+    if not (op and op[0] == "split" and sizes[op[1]] == big
+            and out["refresh"]["maintenance_stats"]["centroid_refreshes"] == 1
+            and all(c["futures_once"] and c["engine_on_new_version"]
+                    and c["ids_in_new_version"]
+                    and abs(c["recall"] - out["recall_before"]) <= RECALL_SLACK
+                    for c in cycles)):
+        raise AssertionError(f"9c: maintenance through the engine failed: "
+                             f"{out}")
+    return out
+
+
+def maintenance_path(root: str, updates: dict, res8b: dict) -> dict:
+    """Phase 9: online maintenance on 8b's store: compaction and recovery
+    after it (9a), a crash at the commit point (9b), and split, merge and
+    centroid refresh through the serving engine under an open client
+    (9c). The launch counts are set to 0 at its start and read at its
+    end."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    res = {"cuts": MAINT_CUTS}
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    res["compaction"], loaded = compaction(root, updates,
+                                           res8b["replay_s"])
+    res["crash"] = crash_window(root, loaded)
+    del loaded, updates["index"]
+    res["engine"] = rebalance_and_refresh(root, updates["queries"])
     res["launches"] = launch_counts()
     res["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 8: launches {res['launches']}; {res['phase_s']:.1f} s")
+    log(f"phase 9: launches {res['launches']}; {res['phase_s']:.1f} s")
     missing = [name for name in PYRAMID_KERNELS if res["launches"][name] <= 0]
     if missing:
-        raise AssertionError(f"phase 8 never launched {missing}: "
+        raise AssertionError(f"phase 9 never launched {missing}: "
                              f"{res['launches']}")
-    if res["phase_s"] > PHASE8_LIMIT_S:
-        raise AssertionError(f"phase 8 took {res['phase_s']:.1f} s, over "
-                             f"its {PHASE8_LIMIT_S:.0f} s")
-    del state["index"]
-    torch.cuda.empty_cache()
+    if res["phase_s"] > PHASE9_LIMIT_S:
+        raise AssertionError(f"phase 9 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE9_LIMIT_S:.0f} s")
     return res
 
 
@@ -2077,7 +2478,7 @@ def main() -> int:
     result["ssm_path"] = lm_path(dev, "mamba2-780m")
     result["serving"] = serving_path(
         state, result["main_path"]["float32"]["recall@10"])
-    result["store"] = store_path(state)
+    result["store"], result["maintenance"] = store_path(state)
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -2089,7 +2490,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(result[phase]["launches"][name] for phase in
                             ("main_path", "lm_path", "ssm_path",
-                             "serving", "store")),
+                             "serving", "store", "maintenance")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

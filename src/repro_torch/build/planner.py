@@ -12,6 +12,8 @@
     result equals the sequential loop. A failed shard is retried up to
     ``max_retries`` times, in-process once the pool is broken, and every
     retry is recorded in ``build_stats["build_timeline"]``.
+  * :func:`plan_rebalance`, :func:`split_shard`, :func:`merge_shards` --
+    online rebalancing, one shard split or merge a maintenance cycle.
 """
 from __future__ import annotations
 
@@ -391,3 +393,163 @@ def build_pyramid_index_parallel(
     return PyramidIndex(config=cfg, meta=plan.meta,
                         part_of_center=plan.part_of_center,
                         subs=subs, build_stats=stats, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Online rebalancing: split / merge planning and apply (used by the store
+# compactor, repro_torch.store.maintenance)
+# ---------------------------------------------------------------------------
+
+
+def plan_rebalance(index: PyramidIndex, *,
+                   engine_stats: Optional[dict] = None,
+                   split_factor: float = 4.0,
+                   merge_factor: float = 0.25,
+                   latency_factor: float = 4.0,
+                   min_split_items: int = 8) -> Optional[Tuple]:
+    """Decide at most ONE split/merge op for the next maintenance cycle.
+
+    Signals, in priority order:
+      * size skew -- a shard holding > ``split_factor`` x the mean
+        sub-dataset size splits; two shards both under ``merge_factor``
+        x the mean merge;
+      * access/latency skew -- with ``engine_stats`` (the serving
+        engine's ``stats()``), a shard whose streaming p99 exceeds
+        ``latency_factor`` x the median p99 splits even when its size
+        alone would not trigger.
+
+    Returns ``("split", s)``, ``("merge", a, b)`` or ``None``. One op per
+    cycle keeps shard indices stable while the op is applied; the
+    compactor re-plans every cycle, so sustained skew drains over
+    successive cycles.
+    """
+    sizes = [g.n for g in index.subs]
+    w = len(sizes)
+    total = sum(sizes)
+    if w == 0 or total == 0:
+        return None
+    mean = total / w
+    centers_per = np.bincount(
+        np.asarray(index.part_of_center, np.int64), minlength=w)
+
+    def splittable(s: int) -> bool:
+        # routing granularity: a split relabels the shard's meta centers,
+        # so it needs at least two of them (and enough items for two
+        # non-trivial halves)
+        return sizes[s] >= max(min_split_items, 2) and centers_per[s] >= 2
+
+    order = np.argsort(sizes)[::-1]
+    for s in order:
+        if sizes[s] > split_factor * mean and splittable(int(s)):
+            return ("split", int(s))
+    lat = (engine_stats or {}).get("latency") or {}
+    p99s = sorted(v["p99"] for v in lat.values() if v.get("n", 0))
+    if p99s:
+        med = p99s[len(p99s) // 2]
+        hot = sorted(
+            (int(s) for s, v in lat.items()
+             if med > 0 and v["p99"] > latency_factor * med
+             and splittable(int(s)) and sizes[int(s)] > mean),
+            key=lambda s: -lat[s]["p99"])
+        if hot:
+            return ("split", hot[0])
+    if w >= 2:
+        a, b = sorted(np.argsort(sizes)[:2].tolist())
+        if (sizes[a] < merge_factor * mean
+                and sizes[b] < merge_factor * mean):
+            return ("merge", int(a), int(b))
+    return None
+
+
+def split_shard(index: PyramidIndex, s: int, *,
+                init_centers: Optional[np.ndarray] = None) -> PyramidIndex:
+    """Split sub-HNSW ``s`` in two (in place): k-means++ (k = 2, on the
+    index's device) over its items, the shard's meta centers relabelled
+    to whichever half is nearest -- routing stays consistent because a
+    query landing on one of those centers now probes exactly the half
+    holding that center's items. Both halves rebuild through
+    ``shard_seed`` and the new shard takes index ``w``
+    (``config.num_shards`` grows by one). ``init_centers`` fixes the two
+    starting centres, as in ``plan_build``."""
+    cfg = index.config
+    metric = "ip" if cfg.is_mips else cfg.metric
+    g = index.subs[s]
+    center_sel = np.where(np.asarray(index.part_of_center) == s)[0]
+    if g.n < 2 or center_sel.size < 2:
+        raise BuildError(
+            f"shard {s} cannot split: {g.n} items, "
+            f"{center_sel.size} meta centers")
+    halves, _ = kmeans(g.data, 2, iters=cfg.kmeans_iters,
+                       spherical=cfg.is_mips,
+                       seed=H.shard_seed(cfg.seed, s), init="kmeans++",
+                       init_centers=init_centers, device=index.device)
+    halves = np.asarray(halves, np.float32)
+    # relabel the partition's centers by nearest half, forcing at least
+    # one center per side (k-means on near-duplicate data can collapse)
+    cvecs = index.meta.data[center_sel]
+    side = np.argmax(
+        M.similarity_matrix_np(cvecs, halves, metric), axis=1)
+    if (side == 0).all():
+        side[np.argmin(
+            M.similarity_matrix_np(cvecs, halves[:1], metric)[:, 0])] = 1
+    elif (side == 1).all():
+        side[np.argmin(
+            M.similarity_matrix_np(cvecs, halves[1:], metric)[:, 0])] = 0
+    w = len(index.subs)
+    part = np.asarray(index.part_of_center).copy()
+    part[center_sel[side == 1]] = w
+    # items follow their nearest center WITHIN the old partition, so an
+    # item ends up exactly where routing via its center now points
+    nearest = np.argmax(
+        M.similarity_matrix_np(g.data, cvecs, metric), axis=1)
+    item_side = side[nearest]
+    new_subs = []
+    for hs, shard_id in ((0, s), (1, w)):
+        sel = item_side == hs
+        new_subs.append(H.build_hnsw(
+            g.data[sel], metric=metric, max_degree=cfg.max_degree,
+            max_degree_upper=cfg.max_degree_upper,
+            ef_construction=cfg.ef_construction,
+            seed=H.shard_seed(cfg.seed, shard_id), ids=g.ids[sel]))
+    index.subs[s] = new_subs[0]
+    index.subs.append(new_subs[1])
+    index.part_of_center = part.astype(np.int32)
+    index.config = dataclasses.replace(cfg, num_shards=w + 1)
+    index.build_stats["sub_sizes"] = [g.n for g in index.subs]
+    index.build_stats["total_stored"] = sum(g.n for g in index.subs)
+    index.invalidate_device_cache()
+    return index
+
+
+def merge_shards(index: PyramidIndex, a: int, b: int) -> PyramidIndex:
+    """Merge sub-HNSW ``b`` into ``a`` (in place): ``b``'s meta centers
+    relabel to ``a``, the combined items (id-deduped -- MIPS replication
+    can store one id in both) rebuild one graph through ``shard_seed``
+    (two empty shards merge into an empty one), and every shard index
+    above ``b`` shifts down by one."""
+    if a == b:
+        raise BuildError("merge_shards needs two distinct shards")
+    a, b = sorted((a, b))
+    cfg = index.config
+    metric = "ip" if cfg.is_mips else cfg.metric
+    ga, gb = index.subs[a], index.subs[b]
+    data = np.concatenate([ga.data, gb.data])
+    ids = np.concatenate([ga.ids, gb.ids])
+    _, first = np.unique(ids, return_index=True)
+    first = np.sort(first)
+    index.subs[a] = H.build_hnsw(
+        data[first], metric=metric, max_degree=cfg.max_degree,
+        max_degree_upper=cfg.max_degree_upper,
+        ef_construction=cfg.ef_construction,
+        seed=H.shard_seed(cfg.seed, a), ids=ids[first])
+    del index.subs[b]
+    part = np.asarray(index.part_of_center).copy()
+    part[part == b] = a
+    part[part > b] -= 1
+    index.part_of_center = part.astype(np.int32)
+    index.config = dataclasses.replace(
+        cfg, num_shards=cfg.num_shards - 1)
+    index.build_stats["sub_sizes"] = [g.n for g in index.subs]
+    index.build_stats["total_stored"] = sum(g.n for g in index.subs)
+    index.invalidate_device_cache()
+    return index

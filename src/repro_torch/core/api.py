@@ -224,13 +224,30 @@ class Brokers:
         return True
 
     def attach_maintenance(self, name: str, store, **opts):
-        """The reference wires a delta-log ``Compactor`` to this broker
-        entry here. Online maintenance is not ported yet (ROADMAP.md
-        section 1, item 3), so this raises."""
-        raise NotImplementedError(
-            "Brokers.attach_maintenance needs the Compactor of online "
-            "maintenance, which is not ported yet (ROADMAP.md section 1, "
-            "item 3)")
+        """Create a :class:`repro_torch.store.maintenance.Compactor` wired
+        to this broker entry: it folds ``name``'s delta log into new
+        versions of ``store`` and hot-swaps the engine through
+        :meth:`replace_index`. The compactor is installed on the running
+        engine (drain-hook step clock + ``stats()['maintenance']``) when
+        one exists, and shares its registry and tracer; without one it
+        loads the store's index on this registry's device. Call
+        ``.start()`` on the result for the background thread, or drive
+        ``run_once()``/``tick()`` deterministically."""
+        from repro_torch.store import Compactor, IndexStore
+        if not isinstance(store, IndexStore):
+            store = IndexStore(str(store))
+        with self._lock:
+            eng = self._engines.get(name)
+        index = (eng.index if eng is not None
+                 else store.load(device=self.device))
+        if eng is not None:   # share the serving observability plane:
+            opts.setdefault("registry", eng.obs)   # one scrape / trace
+            opts.setdefault("tracer", eng.tracer)  # covers both
+        compactor = Compactor(store, index, brokers=self, name=name,
+                              **opts)
+        if eng is not None:
+            compactor.install(eng)
+        return compactor
 
     # -- client surface ----------------------------------------------------
 

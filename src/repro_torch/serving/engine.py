@@ -702,9 +702,8 @@ class ServingEngine:
                 fn=lambda: {(name,): time.monotonic() - hb
                             for name, hb in list(self.heartbeat.items())})
         # maintenance observability: a background compactor
-        # (repro.store.maintenance; not ported yet) registers a stats
-        # provider here and
-        # hooks into the batch-drain tick — same deterministic step
+        # (repro_torch.store.maintenance) registers a stats provider
+        # here and hooks into the batch-drain tick — same deterministic step
         # clock the fault schedule uses, never a timer
         self._drain_hooks: List = []
         self._maintenance_stats = None
@@ -1015,7 +1014,7 @@ class ServingEngine:
             "latency": self.tracker.snapshot(),
             "fault_step": self.faults.step if self.faults else 0,
             "queue_depths": [t.qsize() for t in self.topics],
-            # background maintenance (repro.store.maintenance), when a
+            # background maintenance (repro_torch.store.maintenance), when a
             # compactor is attached: cycles, folded records, rebalance
             # ops, last published version
             "maintenance": (self._maintenance_stats()

@@ -39,8 +39,8 @@ the tenant name, so everything built on brokers (hot-swap via
 The budget is the reference's accounting: admission by
 :func:`estimate_arena_bytes`, trued up from the live engine's
 ``stats()["arena_vector_bytes"]``. It does not read the card's
-allocator. Online maintenance (``attach_maintenance``) is not ported yet
-(ROADMAP.md section 1, item 3) and raises.
+allocator. ``attach_maintenance`` wires a tenant's store to a
+``Compactor`` through the brokers.
 """
 from __future__ import annotations
 
@@ -370,13 +370,10 @@ class TenantManager:
         del engine
 
     def attach_maintenance(self, name: str, store, **opts):
-        """Tenant-scoped :meth:`Brokers.attach_maintenance`: online
-        maintenance is not ported yet (ROADMAP.md section 1, item 3), so
-        this raises."""
-        raise NotImplementedError(
-            "TenantManager.attach_maintenance needs the Compactor of online "
-            "maintenance, which is not ported yet (ROADMAP.md section 1, "
-            "item 3)")
+        """Tenant-scoped :meth:`Brokers.attach_maintenance` (delta-log
+        compaction + hot-swap for this tenant's store)."""
+        self._ensure_live(name)
+        return self.brokers.attach_maintenance(name, store, **opts)
 
     # -- autoscaling arbitration --------------------------------------------
 

@@ -8,24 +8,24 @@ port of ``repro.store``, same on-disk format):
   * lazy per-shard loading (:meth:`IndexStore.reader`);
   * an append-only delta log that ``repro_torch.core.updates`` writes
     through, replayed on load;
-  * GC of superseded versions (:meth:`IndexStore.gc`).
+  * GC of superseded versions (:meth:`IndexStore.gc`);
+  * online maintenance (:class:`Compactor`): the log folded into a new
+    version, shard split/merge and centroid refresh, a hot swap.
 
     from repro_torch.store import IndexStore
     store = IndexStore("/data/pyramid/wiki")
     vid = store.publish(index)          # atomic; attaches the delta log
     index = store.load(device="cuda")   # latest version + delta replay
-
-The reference's ``Compactor`` (online maintenance) is not ported yet
-(ROADMAP.md section 1, item 3).
 """
 from repro_torch.store.format import (StoreCorruptionError, StoreError,
                                       content_checksum, graph_from_arrays,
                                       graph_to_arrays, read_segment,
                                       write_segment)
+from repro_torch.store.maintenance import Compactor
 from repro_torch.store.store import DeltaLog, IndexStore, StoreReader
 
 __all__ = [
-    "DeltaLog", "IndexStore", "StoreReader",
+    "Compactor", "DeltaLog", "IndexStore", "StoreReader",
     "StoreCorruptionError", "StoreError",
     "content_checksum", "graph_from_arrays", "graph_to_arrays",
     "read_segment", "write_segment",

@@ -45,10 +45,12 @@ from repro_torch.core.api import (Brokers, BuildPara, Coordinator, Executor,
 from repro_torch.core.client import gather, gather_arrays
 from repro_torch.core.updates import remove_items
 from repro_torch.launch import serve
+from repro_torch.launch.build_index import load_index
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.tenancy import (AdmissionError, TenantManager,
                                          estimate_arena_bytes)
+from repro_torch.store import Compactor, IndexStore
 
 WAIT = 60.0
 SCORE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -265,8 +267,11 @@ def test_brokers_need_the_card_unless_asked(monkeypatch, built):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TenantManager(1 << 20)
     with Brokers(device="cpu") as brokers:
-        with pytest.raises(NotImplementedError, match="item 3"):
-            brokers.attach_maintenance("svc", built[1])
+        eng = brokers.engine_for("svc", load_index(built[1], device="cpu"))
+        comp = brokers.attach_maintenance("svc", built[1])
+        assert isinstance(comp, Compactor) and comp.index is eng.index
+        assert comp.obs is eng.obs and comp.tracer is eng.tracer
+        assert eng.stats()["maintenance"] == comp.stats()
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +385,7 @@ def test_evict_repin_roundtrip_identical():
     assert ref_stats["tenants"]["a"]["evictions"] == 1
 
 
-def test_explicit_evict_and_lazy_repin():
+def test_explicit_evict_and_lazy_repin(tmp_path):
     x, _, idx = _make()
     q = query_set(x, 4, seed=1)
     with TenantManager(4 * estimate_arena_bytes(idx), device="cpu") as tm:
@@ -394,8 +399,10 @@ def test_explicit_evict_and_lazy_repin():
         assert tm.evict("a") is False
         ids1 = _ids(tm.client("a"), q)
         np.testing.assert_array_equal(ids0, ids1)
-        with pytest.raises(NotImplementedError, match="item 3"):
-            tm.attach_maintenance("a", "/nonexistent")
+        IndexStore(str(tmp_path)).publish(idx)
+        comp = tm.attach_maintenance("a", str(tmp_path))
+        assert isinstance(comp, Compactor)
+        assert tm.engine("a").stats()["maintenance"] == comp.stats()
 
 
 def test_remove_items_in_one_tenant_never_affects_other():

@@ -572,12 +572,15 @@ def test_lm_batcher_on_card_matches_cpu(cuda):
 
 # B x n x d: one query (eight splits), the k-means sample of the index
 # build, a ragged n at a narrow d, the LM datastore's key width
-# (qwen3-1.7b's hidden size), run K's shape (four splits), and the LM
+# (qwen3-1.7b's hidden size), run K's shape (four splits), the LM
 # datastores' k-means (400 keys against 32 centres at qwen3-1.7b's and
-# mamba2-780m's widths; k is cut to n there)
+# mamba2-780m's widths; k is cut to n there), and the LSH baseline's
+# rerank (one query against its largest candidate list, and against
+# short ones) and a shard split's k-means (k = 2)
 TOPK_SHAPES = [(1, 1000, 128), (20_000, 1000, 128), (512, 333, 8),
                (256, 1000, 2048), (4096, 1000, 128), (400, 32, 2048),
-               (400, 32, 1536)]
+               (400, 32, 1536), (1, 2048, 128), (1, 1, 128), (1, 7, 128),
+               (135, 2, 128)]
 
 
 @pytest.mark.parametrize("metric", ("l2", "ip", "angular"))
@@ -735,3 +738,84 @@ def test_serve_entry_point_runs_on_card(cuda, arch, retrieval):
                       else ("decode_attention", "ssd"))
     assert counts[kernel] > 0 and counts[absent] == 0, counts
     assert (counts["beam_search"] > 0) == retrieval, counts
+
+
+# ---------------------------------------------------------------------------
+# online maintenance and the LSH baseline on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("spherical", (False, True))
+def test_kmeanspp_on_card_picks_the_cpu_rows(cuda, spherical):
+    """k-means++ draws with a CPU generator on float64 sums: the card and
+    the CPU pick the same rows, and the k-means that follows (the top-k
+    kernel's assignment on the card) ends on the same clusters."""
+    from repro_torch.core.kmeans import _init_centers, kmeans
+    x = clustered_vectors(4000, 32, 40, seed=7)
+    for seed in range(3):
+        xt = torch.as_tensor(x)
+        if spherical:
+            xt = xt / (torch.linalg.vector_norm(xt, dim=-1, keepdim=True)
+                       + 1e-12)
+        on_card = _init_centers(xt.to(cuda), 64, seed, method="kmeans++")
+        on_cpu = _init_centers(xt, 64, seed, method="kmeans++")
+        assert torch.equal(on_card.cpu(), on_cpu)
+        before = topk_similarity_cuda.launches
+        c_card, n_card = kmeans(x, 64, iters=4, spherical=spherical,
+                                seed=seed, init="kmeans++", device=cuda)
+        assert topk_similarity_cuda.launches == before + 4
+        c_cpu, n_cpu = kmeans(x, 64, iters=4, spherical=spherical,
+                              seed=seed, init="kmeans++", device="cpu")
+        np.testing.assert_array_equal(n_card, n_cpu)
+        np.testing.assert_allclose(c_card, c_cpu, rtol=1e-5, atol=1e-5)
+
+
+def test_compactor_cycle_on_card_matches_cpu_twin(cuda, tmp_path):
+    """One Compactor cycle on a card index and on its CPU twin, over the
+    same records, with a split of the largest shard (k-means++ through
+    the top-k kernel) and a centroid refresh (k-means++ again, and every
+    row routed through the beam kernel): the published versions' segment
+    checksums are equal."""
+    from repro_torch.store import Compactor, IndexStore
+    x, cpu, card = _card_and_cpu_twin()
+    sums = {}
+    for name, index in (("cpu", cpu), ("cuda", card)):
+        store = IndexStore(str(tmp_path / name))
+        store.publish(index)
+        sizes = [g.n for g in index.subs]
+        comp = Compactor(store, index, split_factor=0.99 * max(sizes)
+                         / np.mean(sizes), refresh_every=1)
+        comp.add_items(x[np.sort(index.subs[0].ids)[:16]] + 0.01)
+        comp.remove_items(index.subs[1].ids[:4])
+        reset_launch_counts()
+        comp.run_once(force=True)
+        counts = launch_counts()
+        assert comp.rebalance_ops[0][0] == "split"
+        assert comp.refreshes == 1
+        assert comp.index.device.type == name
+        if name == "cuda":
+            assert counts["topk_distance"] > 0 and counts["beam_search"] > 0
+        else:
+            assert not any(counts.values())
+        sums[name] = _checksums(IndexStore(str(tmp_path / name)).load(
+            device="cpu"))
+        assert sums[name] == _checksums(comp.index)
+    assert sums["cuda"] == sums["cpu"]
+
+
+def test_lsh_on_card_matches_cpu_twin(cuda):
+    """``search_lsh`` reranks on the card through the top-k kernel, one
+    launch a query with candidates, with the CPU twin's ids."""
+    from repro_torch.core.lsh import build_lsh, search_lsh
+    x = clustered_vectors(6000, 32, 30, seed=5)
+    q = query_set(x, 64, seed=6)
+    for metric in ("l2", "angular"):
+        idx = build_lsh(x, metric=metric, num_shards=4, num_tables=8,
+                        num_bits=8, width=3.0)
+        before = topk_similarity_cuda.launches
+        ids_card, s_card = search_lsh(idx, q, 10)
+        assert topk_similarity_cuda.launches - before == \
+            int((ids_card[:, 0] >= 0).sum())
+        ids_cpu, s_cpu = search_lsh(idx, q, 10, device="cpu")
+        _close(torch.as_tensor(ids_card), torch.as_tensor(ids_cpu),
+               torch.as_tensor(s_card), torch.as_tensor(s_cpu))

@@ -18,7 +18,7 @@ from repro_torch.core import distributed as TD
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.core.meta_index import PyramidIndex, build_pyramid_index
 from repro_torch.core.api import Brokers, GraphConstructor
-from repro_torch.launch import serve
+from repro_torch.launch import maintain, serve
 from repro_torch.launch.build_index import load_index
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.batcher import ContinuousBatcher
@@ -46,6 +46,8 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.store.store", "repro_torch.core.updates",
             "repro_torch.core.api", "repro_torch.serving.tenancy",
             "repro_torch.launch.build_index"} <= set(MODULES)
+    assert {"repro_torch.store.maintenance", "repro_torch.core.lsh",
+            "repro_torch.launch.maintain"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -106,4 +108,6 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
         GraphConstructor(x, "l2", str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TenantManager(1 << 20)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        maintain.main(["--store", str(tmp_path)])
     assert IndexStore(str(tmp_path)).load(device="cpu").device.type == "cpu"

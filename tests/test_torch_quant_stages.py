@@ -275,3 +275,52 @@ def test_port_plain_version_agrees_with_mirror():
             torch.as_tensor(scale), torch.as_tensor(zero), metric=metric)
         _hold(quant_scores_mirror(q, codes, scale, zero, metric=metric),
               plain.numpy(), elementwise=False)
+
+
+def float64_l2_scores(q, codes, scale, zero) -> torch.Tensor:
+    """The function the int8 scan approximates, exactly: l2 scores
+    ``2 x.q - |q|^2 - |x|^2`` in float64 of the rows dequantized as the
+    plain version dequantizes them (``c * scale + zero`` in float32)."""
+    x_hat = (torch.as_tensor(np.asarray(codes, np.int8)).to(torch.float32)
+             * torch.as_tensor(scale) + torch.as_tensor(zero)).double()
+    q64 = torch.as_tensor(np.asarray(q, np.float32)).double()
+    return (2.0 * q64 @ x_hat.T - (q64 * q64).sum(dim=1)[:, None]
+            - (x_hat * x_hat).sum(dim=1)[None, :])
+
+
+# phase 4's int8 scan at n rows (chip_smoke.int8_scan): the plain float32
+# version's only misses against float64's top-10 of the first 64 queries,
+# as (query, rank, plain's row, float64's row)
+PHASE4_PLAIN_MISSES = {
+    20_000: [(8, 3, 16521, 11802), (8, 4, 11802, 16521)],  # a near tie
+    50_000: [(43, 9, 6640, 39116)],      # an exact tie in float32
+}
+
+
+@pytest.mark.parametrize("n", sorted(PHASE4_PLAIN_MISSES))
+def test_mirror_top10_equals_float64_on_phase4_scan(n):
+    """The grid and codes as the int8 arena builds them from phase 4's
+    vectors: the kernel's arithmetic ranks the top 10 of each of the
+    first 64 queries as float64 does, at every position; the plain
+    float32 version misorders a near tie (n = 20,000: query 8's ranks 3
+    and 4, float64 scores 1.7e-6 apart) or breaks an exact float32 tie
+    the other way (n = 50,000)."""
+    from repro_torch.core.quant import QuantParams as TorchQuantParams
+    from repro_torch.data.synthetic import clustered_vectors, query_set
+    x = clustered_vectors(n, 128, 1000, seed=0)
+    q = query_set(x, 1024, seed=1)[:64]
+    params = TorchQuantParams.from_data([x])
+    codes = params.quantize(x)
+    exact = float64_l2_scores(q, codes, params.scale, params.zero)
+    want = torch.topk(exact, 10, dim=1).indices
+    mirror = quant_scores_mirror(q, codes, params.scale, params.zero,
+                                 metric="l2")
+    assert torch.equal(torch.topk(mirror, 10, dim=1).indices, want)
+    plain = torch_quant_scores(
+        torch.as_tensor(q), torch.as_tensor(codes),
+        torch.as_tensor(params.scale), torch.as_tensor(params.zero),
+        metric="l2")
+    got = torch.topk(plain, 10, dim=1).indices
+    misses = [(qi, j, int(got[qi, j]), int(want[qi, j]))
+              for qi, j in (got != want).nonzero().tolist()]
+    assert misses == PHASE4_PLAIN_MISSES[n]
