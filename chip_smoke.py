@@ -64,11 +64,12 @@ Phases, each raising on failure (the script then exits non-zero):
      phase 4's); a 1,024-row index built here, published, updated
      (``add_items`` of 128 rows from two clusters, ``set_item_tags``,
      ``remove_items`` of 32 ids) and checked live, then recovered by
-     ``IndexStore.load`` (segment checksums and ids equal to the live
-     index's) and ``ServingEngine.from_store`` (recall within 0.02 of the
-     pre-crash engine's; int8 codes equal); Listing 1's ``Coordinator``
-     over the first store (ids equal to phase 7's), a hot swap onto the
-     second under an open client, and a ``TenantManager`` whose budget
+     ``ServingEngine.from_store`` (the loaded index's segment checksums
+     and ids equal to the live index's; recall within 0.02 of the
+     pre-crash engine's) and by ``from_store`` in int8 (codes equal);
+     Listing 1's ``Coordinator`` over the first store (ids equal to phase
+     7's), a hot swap onto the recovered second index under an open
+     client, and a ``TenantManager`` whose budget
      holds one of the two tenants: the evicted tenant's device memory
      comes back and its re-pinned ids are identical;
   9. online maintenance on the second store (``Compactor``): its delta
@@ -995,7 +996,7 @@ def main_path(n: int, n_queries: int, workers: int) -> dict:
         raise AssertionError("float32 recall@10 below 0.90")
     if res["int8"]["recall@10"] < res["float32"]["recall@10"] - 0.01:
         raise AssertionError("int8 recall@10 more than 0.01 below float32")
-    state = {"index": index, "queries": q, "truth": truth,
+    state = {"index": index, "x": x, "queries": q, "truth": truth,
              "answers": answers}
     return res, state
 
@@ -1717,13 +1718,14 @@ def serving_path(state: dict, recall_single_host: float) -> dict:
 # 8b's index: clustered_vectors(UPDATES_N, 128, UPDATES_CLUSTERS) with the
 # paper's PyramidConfig() except the cuts below. Every insert and removal
 # rebuilds the shards it touches with the host builder (about 35 ms a row
-# at M = 32, ef_construction = 100), and 8b and 8c rebuild them five
-# times (the live apply, IndexStore.load, two from_store and the hot
-# swap's load), so N is cut until the phase fits its 120 s.
+# at M = 32, ef_construction = 100), and 8b rebuilds them three times (the
+# live apply and two from_store recoveries, float32 and int8; 8c's hot
+# swap takes the float32 recovery's index), so N is cut until the phase
+# fits its 120 s.
 UPDATES_N = 1024
 UPDATES_CLUSTERS = 32
 UPDATES_CUTS = {
-    "n": "4,096 -> 1,024: the rebuilds of the touched shards, five times "
+    "n": "4,096 -> 1,024: the rebuilds of the touched shards, three times "
          "over, at ~35 ms a row must fit the phase's 120 s",
     "meta_size": "1,000 -> 64: four k-means centres a shard; 1,000 "
                  "centres cannot be drawn from 1,024 rows",
@@ -1916,21 +1918,23 @@ def online_updates(root: str):
         raise AssertionError(f"8b: the live index after the updates is "
                              f"wrong: {out}")
 
-    # the crash: the index and its engine are gone; recover from the store
+    # the crash: the index and its engine are gone; recover from the
+    # store. ServingEngine.from_store is IndexStore.load (verify, rebuild,
+    # replay the delta log) and an engine on the loaded index: the
+    # recovered index is checked through the engine's own copy, so the
+    # log is replayed once for both
     del index, eng
     rebuilds, unwrap = timed_rebuilds()
     try:
         t0 = time.perf_counter()
-        loaded = IndexStore(root).load(device="cuda")
+        eng = ServingEngine.from_store(root, replicas=1)
         out["replay_s"] = time.perf_counter() - t0
         out["replay_rebuilds"] = list(rebuilds)
-        ids2, _, _ = search_single_host(loaded, q, k)
-        out["replay_checksums_equal"] = checksums(loaded) == live_sums
-        out["replay_ids_equal"] = float((ids2 == ids).all(axis=1).mean())
-        t0 = time.perf_counter()
-        eng = ServingEngine.from_store(root, replicas=1)
-        out["from_store_s"] = time.perf_counter() - t0
+        loaded = eng.index
         try:
+            ids2, _, _ = search_single_host(loaded, q, k)
+            out["replay_checksums_equal"] = checksums(loaded) == live_sums
+            out["replay_ids_equal"] = float((ids2 == ids).all(axis=1).mean())
             eng_ids, out["recall_from_store"] = engine_recall(eng, q,
                                                               truth, k)
         finally:
@@ -1945,12 +1949,11 @@ def online_updates(root: str):
             engq.shutdown()
     finally:
         unwrap()
-    log(f"8b recovery: IndexStore.load replayed {out['delta_records']} "
-        f"records in {out['replay_s']:.1f} s (rebuilds "
-        f"{out['replay_rebuilds']}); checksums equal "
-        f"{out['replay_checksums_equal']}, ids equal "
-        f"{out['replay_ids_equal']:.4f}; from_store "
-        f"{out['from_store_s']:.1f} s recall@10 "
+    log(f"8b recovery: ServingEngine.from_store replayed "
+        f"{out['delta_records']} records and started in "
+        f"{out['replay_s']:.1f} s (rebuilds {out['replay_rebuilds']}); "
+        f"checksums equal {out['replay_checksums_equal']}, ids equal "
+        f"{out['replay_ids_equal']:.4f}, recall@10 "
         f"{out['recall_from_store']:.4f} (pre-crash "
         f"{out['recall_engine_pre_crash']:.4f}); from_store int8 "
         f"{out['from_store_int8_s']:.1f} s, codes equal "
@@ -1972,11 +1975,11 @@ def counter_series(registry, name: str) -> dict:
             for e in series}
 
 
-def api_and_tenancy(state: dict, root_a: str, root_b: str,
-                    index_a, updates: dict) -> dict:
-    """8c: Listing 1 over 8a's store, a hot swap onto 8b's store under an
-    open client, and two tenants (8a's index in float32, 8b's in int8)
-    under a budget that holds one at a time."""
+def api_and_tenancy(state: dict, root_a: str, index_a,
+                    updates: dict) -> dict:
+    """8c: Listing 1 over 8a's store, a hot swap onto 8b's recovered index
+    under an open client, and two tenants (8a's index in float32, 8b's in
+    int8) under a budget that holds one at a time."""
     import torch
     from repro_torch.core.api import Brokers, Coordinator, QueryPara
     from repro_torch.core.client import gather_arrays
@@ -1996,8 +1999,12 @@ def api_and_tenancy(state: dict, root_a: str, root_b: str,
         out["listing1_ids_equal_phase7"] = float(
             (ids == state["engine_ids"][:API_QUERIES]).all(axis=1).mean())
         client = brokers.open_client("sift", root_a, metric="l2")
+        # the hot swap onto 8b's index as 8b recovered it from its store
+        # (replace_index takes a store path or a loaded index; 8b's
+        # recovery already replayed the store's log; 9c swaps from a
+        # store path, once the log is compacted away)
         t0 = time.perf_counter()
-        brokers.replace_index("sift", root_b)
+        brokers.replace_index("sift", updates["index"])
         out["hot_swap_s"] = time.perf_counter() - t0
         qb, truth_b = updates["queries"], updates["truth"]
         swapped, _ = gather_arrays(client.search_batch(qb, k=k), k, 120.0)
@@ -2009,8 +2016,9 @@ def api_and_tenancy(state: dict, root_a: str, root_b: str,
     log(f"8c Listing 1: Coordinator on 8a's store started in "
         f"{out['coordinator_start_s']:.1f} s, {API_QUERIES} queries in "
         f"{out['listing1_s']:.2f} s, ids equal to phase 7's on "
-        f"{out['listing1_ids_equal_phase7']:.4f}; hot swap onto 8b's store "
-        f"{out['hot_swap_s']:.1f} s, the open client's ids all in 8b "
+        f"{out['listing1_ids_equal_phase7']:.4f}; hot swap onto 8b's "
+        f"recovered index {out['hot_swap_s']:.1f} s, the open client's ids "
+        f"all in 8b "
         f"{out['swap_ids_in_8b']}, recall@10 {out['swap_recall']:.4f} "
         f"(8b's from_store engine {out['swap_recall_from_store']:.4f})")
     if not (out["listing1_ids_equal_phase7"] == 1.0 and out["swap_ids_in_8b"]
@@ -2103,8 +2111,7 @@ def store_path(state: dict):
         t0 = time.perf_counter()
         res["updates"], updates = online_updates(root_b)
         res["updates"]["step_s"] = time.perf_counter() - t0
-        res["api"] = api_and_tenancy(state, root_a, root_b, index_a,
-                                     updates)
+        res["api"] = api_and_tenancy(state, root_a, index_a, updates)
         res["launches"] = launch_counts()
         res["phase_s"] = time.perf_counter() - t_phase
         log(f"phase 8: launches {res['launches']}; {res['phase_s']:.1f} s")
@@ -2116,7 +2123,7 @@ def store_path(state: dict):
         if res["phase_s"] > PHASE8_LIMIT_S:
             raise AssertionError(f"phase 8 took {res['phase_s']:.1f} s, "
                                  f"over its {PHASE8_LIMIT_S:.0f} s")
-        del index_a, state["index"]
+        del index_a          # phase 10 searches state["index"] again
         torch.cuda.empty_cache()
         maintenance = maintenance_path(root_b, updates, res["updates"])
     finally:
@@ -2344,7 +2351,9 @@ def rebalance_and_refresh(root: str, q) -> dict:
     splittable shard, one with the default factors, one centroid refresh
     (k-means++ and a rebuild of every shard), and one more with the
     default factors. Recall@10 after each hot swap must stay within
-    RECALL_SLACK of the engine's before maintenance."""
+    RECALL_SLACK of the engine's before maintenance. Then a hot swap from
+    the store path, the serving layer's refresh: the client's ids must
+    not change."""
     from repro_torch.core.api import Brokers
     from repro_torch.core.client import gather_arrays
     from repro_torch.obs import Tracer
@@ -2385,11 +2394,34 @@ def rebalance_and_refresh(root: str, q) -> dict:
         out["after_refresh"] = maintenance_cycle(
             brokers, comp, client, q, truth_ids, k,
             "default factors after the refresh")
+        # the serving layer's refresh from the store path (replace_index
+        # loads the latest published version on the card): the last cycle
+        # published and truncated its log, so nothing is replayed and the
+        # open client's ids stay the compacted index's
+        ids_last, _ = gather_arrays(client.search_batch(q, k), k, 120.0)
+        t0 = time.perf_counter()
+        brokers.replace_index("maint", root)
+        swap = {"swap_s": time.perf_counter() - t0}
+        eng = brokers.get_engine("maint")
+        ids_swap, _ = gather_arrays(client.search_batch(q, k), k, 120.0)
+        swap.update(
+            new_engine=eng.index is not comp.index,
+            replayed=len(eng.index.delta_log()),
+            checksums_equal=checksums(eng.index) == checksums(comp.index),
+            ids_equal=float((ids_swap == ids_last).all(axis=1).mean()))
+        out["store_swap"] = swap
+        log(f"9c hot swap from the store path: {swap['swap_s']:.2f} s, "
+            f"replayed {swap['replayed']} records, checksums equal "
+            f"{swap['checksums_equal']}, the open client's ids equal "
+            f"{swap['ids_equal']:.4f}")
     out["stages_s"] = cycle_stages(tracer)
     cycles = [out[c] for c in ("split", "default", "refresh",
                                "after_refresh")]
     op = out["split"]["op"]
+    swap = out["store_swap"]
     if not (op and op[0] == "split" and sizes[op[1]] == big
+            and swap["new_engine"] and swap["replayed"] == 0
+            and swap["checksums_equal"] and swap["ids_equal"] == 1.0
             and out["refresh"]["maintenance_stats"]["centroid_refreshes"] == 1
             and all(c["futures_once"] and c["engine_on_new_version"]
                     and c["ids_in_new_version"]
@@ -2425,6 +2457,237 @@ def maintenance_path(root: str, updates: dict, res8b: dict) -> dict:
     if res["phase_s"] > PHASE9_LIMIT_S:
         raise AssertionError(f"phase 9 took {res['phase_s']:.1f} s, over "
                              f"its {PHASE9_LIMIT_S:.0f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 10: Pyramid's multi-device path on one card
+# ---------------------------------------------------------------------------
+
+PHASE10_LIMIT_S = 60.0
+NAIVE_QUERIES = 256        # the naive baseline's batch (C = that batch)
+WORKER_READS = (1, 4)      # workers reading phase 4's rows back
+
+
+def dropped_pairs(mask, capacity: int) -> dict:
+    """Routed (query, shard) pairs a capacity of C leaves unwalked: each
+    shard walks the first C queries routed to it."""
+    load = mask.sum(dim=0)
+    routed = int(load.sum())
+    return {"routed": routed,
+            "dropped": routed - int(load.clamp(max=capacity).sum()),
+            "max_load": int(load.max()), "capacity": capacity}
+
+
+def uncounted(checks: dict, fn):
+    """Runs a check's own reference ``fn`` and adds the kernel launches it
+    made to ``checks``, which the phase takes back out of its counts: the
+    path's counts hold the path's launches only."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    out = fn()
+    for name, n in launch_counts().items():
+        checks[name] = checks.get(name, 0) + n - before[name]
+    return out
+
+
+def spmd_search(mesh, state: dict, dev, checks: dict) -> dict:
+    """10a: ``make_pyramid_search_fn`` over phase 4's index and queries on
+    a (1, 1) mesh (every shard on this rank; the partials gathered over
+    ``model`` by NCCL), float32 and int8 (rerank 4), its ids held equal to
+    the one-device pipeline at the same capacity C (``arena_search`` with
+    the same routing mask, then ``exact_rerank_np`` for int8); and the
+    naive baseline (every query to every shard) on a slice of the
+    queries, split over the ``data`` axis (one replica here). The
+    reference runs' launches go to ``checks``."""
+    import torch
+    from repro_torch.core import quant as Q
+    from repro_torch.core.arena import arena_search
+    from repro_torch.core.distributed import local_arena, make_pyramid_search_fn
+    from repro_torch.core.router import route_queries
+    from repro_torch.kernels import launch_counts
+    index, q, truth = state["index"], state["queries"], state["truth"]
+    cfg, k = index.config, truth.shape[1]
+    qt = torch.as_tensor(q, device=dev)
+    meta, poc = index.meta_arrays(), index.part_of_center_tensor()
+    w, kb = index.num_shards, cfg.branching_factor
+    mask, _ = uncounted(checks, lambda: route_queries(
+        meta, poc, qt, metric="l2", branching_factor=kb, num_shards=w,
+        ef=max(64, kb)))
+    table = index.rerank_table()
+    out = {}
+    runs = {"float32": (dict(), len(q)),
+            "int8": (dict(quantize=True, rerank_factor=4), len(q)),
+            "naive": (dict(naive=True, data_axis="data"), NAIVE_QUERIES)}
+    for name, (kw, b) in runs.items():
+        quantize = kw.get("quantize", False)
+        fn = make_pyramid_search_fn(mesh, cfg, k=k, batch=b,
+                                    index=index if quantize else None, **kw)
+        arena = local_arena(index, mesh, quantize=quantize)
+        qb = qt[:b]
+        call = lambda: fn(arena, meta, poc, qb)
+        before = launch_counts()
+        (ids, scores), first_s = synced(call)
+        reps = 3
+        _, dt = synced(lambda: [call() for _ in range(reps)])
+        after = launch_counts()
+        dt /= reps
+        ids = np.asarray(ids.cpu() if hasattr(ids, "cpu") else ids)
+        scores = np.asarray(scores.cpu() if hasattr(scores, "cpu")
+                            else scores)
+        # the one-device pipeline at the same capacity and routing
+        k_in = k * kw.get("rerank_factor", 1)
+        cap = b if kw.get("naive") else max(1, min(b, int(np.ceil(
+            b * kb / w * cfg.capacity_factor))))
+        mb = torch.ones((b, w), dtype=torch.bool, device=dev) \
+            if kw.get("naive") else mask[:b]
+        ref_ids, ref_s, _ = uncounted(checks, lambda: arena_search(
+            arena, None, None, qb, metric="l2", k=k_in,
+            ef=max(cfg.ef_search, k_in), capacity=cap, mask=mb))
+        ref_ids = ref_ids.cpu().numpy()
+        ref_s = ref_s.cpu().numpy()
+        if quantize:
+            ref_ids, ref_s = Q.exact_rerank_np(
+                q[:b], ref_ids, k, table_ids=table[0], table_vecs=table[1],
+                metric="l2")
+        check_answer(f"spmd {name}", ids, scores, state["x"], q[:b], k)
+        single = state["answers"]["float32"][0][:b]
+        out[name] = {
+            "batch": b, **dropped_pairs(mb, cap),
+            "ids_equal_pipeline": float((ids == ref_ids).mean()),
+            "max_score_diff_pipeline": float(np.abs(scores - ref_s).max()),
+            "recall@10": recall_at(ids, truth[:b]),
+            "recall@10_search_single_host": recall_at(single, truth[:b]),
+            "qps": b / dt, "batch_s": dt, "first_call_s": first_s,
+            "launches_per_batch": {
+                key: (after[key] - before[key]) // (reps + 1)
+                for key in ("beam_search", "merge_topk")}}
+        r = out[name]
+        log(f"10a spmd {name}: batch {b}, C {r['capacity']} (largest shard "
+            f"load {r['max_load']}), dropped {r['dropped']} of {r['routed']}"
+            f" routed pairs; ids equal to the same-capacity pipeline "
+            f"{r['ids_equal_pipeline']:.5f} (max score diff "
+            f"{r['max_score_diff_pipeline']:.3g}); recall@10 "
+            f"{r['recall@10']:.4f} (search_single_host "
+            f"{r['recall@10_search_single_host']:.4f}); QPS {r['qps']:.1f} "
+            f"({dt * 1e3:.2f} ms a batch, first call {first_s:.2f} s); "
+            f"launches a batch {r['launches_per_batch']}")
+        if r["ids_equal_pipeline"] != 1.0 or \
+                r["max_score_diff_pipeline"] > 1e-5:
+            raise AssertionError(f"10a: the SPMD {name} search differs from "
+                                 f"the one-device pipeline: {r}")
+    return out
+
+
+def distributed_build(mesh, state: dict, dev, checks: dict) -> dict:
+    """10b: phase 4's rows written to an .fvecs file and read back by 1
+    and 4 workers through ``worker_slice``; then ``kmeans_distributed``
+    over the build's sample (the ``data`` axis on this card), held to the
+    port's ``kmeans`` from the same initial centres (its launches go to
+    ``checks``)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.kmeans import _init_centers, kmeans, kmeans_distributed
+    from repro_torch.core.meta_index import _sample
+    from repro_torch.data.vectors import load_dataset, worker_slice, write_fvecs
+    from repro_torch.kernels import launch_counts
+    x, cfg = state["x"], state["index"].config
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vectors_")
+    try:
+        path = os.path.join(tmp, "phase4.fvecs")
+        t0 = time.perf_counter()
+        write_fvecs(path, x)
+        out["write_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        for workers in WORKER_READS:
+            t0 = time.perf_counter()
+            parts = [load_dataset(path, *worker_slice(len(x), r, workers))
+                     for r in range(workers)]
+            out[f"read_{workers}_s"] = time.perf_counter() - t0
+            out[f"read_{workers}_rows"] = [len(p) for p in parts]
+            if not np.array_equal(np.concatenate(parts), x):
+                raise AssertionError(f"10b: {workers} workers read back "
+                                     f"other rows")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the build's sample and number of centres, as plan_build draws them
+    sample = _sample(x, cfg.sample_size, np.random.default_rng(cfg.seed))
+    m = min(cfg.meta_size, max(cfg.num_shards, len(x) // 4))
+    init = _init_centers(torch.as_tensor(sample), m, cfg.seed).numpy()
+    before = launch_counts()["topk_distance"]
+    (c_d, n_d), out["kmeans_distributed_s"] = synced(
+        lambda: kmeans_distributed(sample, m, mesh, iters=cfg.kmeans_iters,
+                                   init_centers=init))
+    out["kmeans_distributed_topk_launches"] = \
+        launch_counts()["topk_distance"] - before
+    (c_1, n_1), out["kmeans_s"] = uncounted(checks, lambda: synced(
+        lambda: kmeans(sample, m, iters=cfg.kmeans_iters, init_centers=init,
+                       device=dev)))
+    out.update(rows=len(sample), m=m, iters=cfg.kmeans_iters,
+               max_center_diff=float(np.abs(c_d - c_1).max()),
+               counts_equal=bool(np.array_equal(n_d, n_1)),
+               empty_centres=int((n_d == 0).sum()))
+    log(f"10b distributed build: wrote {out['file_bytes']} bytes in "
+        f"{out['write_s']:.2f} s, read back by 1 and 4 workers in "
+        f"{out['read_1_s']:.3f} / {out['read_4_s']:.3f} s (rows "
+        f"{out['read_4_rows']}); kmeans_distributed on {len(sample)} x "
+        f"{sample.shape[1]}, m {m}, {cfg.kmeans_iters} iterations: "
+        f"{out['kmeans_distributed_s']:.3f} s, "
+        f"{out['kmeans_distributed_topk_launches']} top-k launches; against "
+        f"kmeans ({out['kmeans_s']:.3f} s): max centre diff "
+        f"{out['max_center_diff']:.3g}, counts equal {out['counts_equal']}")
+    if out["max_center_diff"] > 1e-4 or not out["counts_equal"] or \
+            out["kmeans_distributed_topk_launches"] != cfg.kmeans_iters:
+        raise AssertionError(f"10b: kmeans_distributed differs from kmeans: "
+                             f"{out}")
+    return out
+
+
+def multi_device_path(state: dict) -> dict:
+    """Phase 10: Pyramid's multi-device path on this card: a (1, 1) mesh
+    from ``make_local_mesh("cuda")`` (NCCL at world size 1), the SPMD
+    search over phase 4's index (10a) and the distributed build's reads
+    and k-means (10b). The launch counts are set to 0 at its start and
+    read at its end, less the launches of the checks' reference runs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    res, checks = {}, {}
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        mesh = make_local_mesh("cuda")
+        res["mesh_s"] = time.perf_counter() - t0
+        res["backend"] = dist.get_backend()
+        res["world_size"] = dist.get_world_size()
+        res["mesh"] = str(mesh)
+        log(f"phase 10: {res['mesh']} on {res['backend']}, world size "
+            f"{res['world_size']}, started in {res['mesh_s']:.2f} s")
+        if res["backend"] != "nccl":
+            raise AssertionError(f"phase 10: a cuda mesh on {res['backend']}")
+        dev = torch.device("cuda")
+        res["spmd"] = spmd_search(mesh, state, dev, checks)
+        res["build"] = distributed_build(mesh, state, dev, checks)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    res["launches"] = {name: n - checks.get(name, 0)
+                       for name, n in launch_counts().items()}
+    res["check_launches"] = checks
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: launches {res['launches']} (the checks' own "
+        f"{checks} not counted); {res['phase_s']:.1f} s")
+    missing = [name for name in PYRAMID_KERNELS if res["launches"][name] <= 0]
+    if missing:
+        raise AssertionError(f"phase 10 never launched {missing}: "
+                             f"{res['launches']}")
+    if res["phase_s"] > PHASE10_LIMIT_S:
+        raise AssertionError(f"phase 10 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE10_LIMIT_S:.0f} s")
     return res
 
 
@@ -2479,6 +2742,7 @@ def main() -> int:
     result["serving"] = serving_path(
         state, result["main_path"]["float32"]["recall@10"])
     result["store"], result["maintenance"] = store_path(state)
+    result["multi_device"] = multi_device_path(state)
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -2490,7 +2754,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": sum(result[phase]["launches"][name] for phase in
                             ("main_path", "lm_path", "ssm_path",
-                             "serving", "store", "maintenance")),
+                             "serving", "store", "maintenance",
+                             "multi_device")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -91,8 +91,11 @@ class ShardArena:
         return self._views[i]
 
     @classmethod
-    def from_index(cls, index, device) -> "ShardArena":
-        st = _stack_host(index)
+    def from_index(cls, index, device,
+                   shards: Optional[range] = None) -> "ShardArena":
+        """The arena of ``index.subs[shards]`` (all of them by default), on
+        ``device``."""
+        st = _stack_host(index, shards=shards)
         return cls(**{k: torch.as_tensor(v).to(device) for k, v in st.items()})
 
 
@@ -105,19 +108,23 @@ class QuantizedShardArena(ShardArena):
     zero: torch.Tensor = None    # [w, d] f32
 
     @classmethod
-    def from_index(cls, index, device, params=None) -> "QuantizedShardArena":
+    def from_index(cls, index, device, params=None,
+                   shards: Optional[range] = None) -> "QuantizedShardArena":
         params = params or index.quant_params()
-        st = _stack_host(index, quantize=params.quantize)
+        st = _stack_host(index, quantize=params.quantize, shards=shards)
         w = st["data"].shape[0]
         st["scale"] = np.tile(params.scale[None, :], (w, 1))
         st["zero"] = np.tile(params.zero[None, :], (w, 1))
         return cls(**{k: torch.as_tensor(v).to(device) for k, v in st.items()})
 
 
-def _stack_host(index, quantize=None) -> Dict[str, np.ndarray]:
-    """Stack ``index.subs`` into equal-padded host arrays. ``quantize``
-    maps each shard's [n, d] float rows to int8 codes for the quantized
-    arena; pad rows stay zero (they are unreachable)."""
+def _stack_host(index, quantize=None,
+                shards: Optional[range] = None) -> Dict[str, np.ndarray]:
+    """Stack ``index.subs`` (those of ``shards`` only, when given) into
+    equal-padded host arrays. The padding is the whole index's, so a slice
+    of shards stacks to that slice of the whole arena. ``quantize`` maps
+    each shard's [n, d] float rows to int8 codes for the quantized arena;
+    pad rows stay zero (they are unreachable)."""
     subs = index.subs
     n_pad = max(1, max(g.n for g in subs))
     l_pad = max(1, max(g.max_level for g in subs))
@@ -125,6 +132,8 @@ def _stack_host(index, quantize=None) -> Dict[str, np.ndarray]:
              default=1)
     m0 = max(g.neighbors[0].shape[1] for g in subs)
     d = subs[0].d
+    if shards is not None:
+        subs = [subs[s] for s in shards]
     w = len(subs)
 
     data = np.zeros((w, n_pad, d),

@@ -19,7 +19,10 @@ another order); over longer rows (d = 128 to 2,048) it is held to
 1e-5 of the largest |score|, as in ``chip_smoke.py``, since two orders of
 a longer sum can part by more than 1e-5 at a score near zero. The
 serving engine on the card returns the ids of the same engine on the CPU
-in at least 99% of positions.
+in at least 99% of positions. The SPMD search on NCCL at world size 1
+returns its CPU twin's ids (over gloo) exactly, scores to rtol 1e-5 and
+atol 1e-4; ``kmeans_distributed`` there ends on ``kmeans``'s counts, and
+its centres to rtol 1e-5, atol 1e-6 (the same kernel calls, one rank).
 """
 import numpy as np
 import pytest
@@ -819,3 +822,86 @@ def test_lsh_on_card_matches_cpu_twin(cuda):
         ids_cpu, s_cpu = search_lsh(idx, q, 10, device="cpu")
         _close(torch.as_tensor(ids_card), torch.as_tensor(ids_cpu),
                torch.as_tensor(s_card), torch.as_tensor(s_cpu))
+
+
+# ---------------------------------------------------------------------------
+# the multi-device path: NCCL at world size 1 on the card
+# ---------------------------------------------------------------------------
+
+
+def _on_one_rank(device, run):
+    """``run(mesh)`` on a (1, 1) mesh of ``device`` -- NCCL on the card,
+    gloo on the CPU -- whose process group starts and ends here."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    try:
+        mesh = make_local_mesh(device)
+        assert dist.get_backend() == {"cuda": "nccl", "cpu": "gloo"}[device]
+        return run(mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _numpy(t):
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+@pytest.mark.parametrize("quantize", (False, True), ids=("f32", "int8"))
+def test_spmd_search_on_nccl_matches_gloo_cpu(cuda, quantize):
+    """``make_pyramid_search_fn`` on the card (the beam and merge kernels,
+    the partials gathered by NCCL) returns the ids of its CPU twin over
+    gloo, float32 and int8 (rerank 4)."""
+    x, cpu, card = _card_and_cpu_twin()
+    q = query_set(x, 64, seed=9)
+    kw = dict(quantize=True, rerank_factor=4) if quantize else {}
+
+    def search(index):
+        def run(mesh):
+            fn = TD.make_pyramid_search_fn(
+                mesh, index.config, k=10, batch=len(q),
+                index=index if quantize else None, **kw)
+            arena = TD.local_arena(index, mesh, quantize=quantize)
+            ids, scores = fn(arena, index.meta_arrays(),
+                             index.part_of_center_tensor(), q)
+            return _numpy(ids), _numpy(scores)
+        return run
+    reset_launch_counts()
+    ids_card, s_card = _on_one_rank("cuda", search(card))
+    counts = launch_counts()
+    assert counts["beam_search"] > 0 and counts["merge_topk"] > 0, counts
+    ids_cpu, s_cpu = _on_one_rank("cpu", search(cpu))
+    np.testing.assert_array_equal(ids_card, ids_cpu)
+    np.testing.assert_allclose(s_card, s_cpu, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("spherical", (False, True))
+def test_kmeans_distributed_on_nccl_matches_kmeans(cuda, spherical):
+    """``kmeans_distributed`` on the card's one rank assigns through the
+    top-k kernel and sums through NCCL: from the same initial centres it
+    ends on ``kmeans``'s centres and counts."""
+    from repro_torch.core.kmeans import kmeans, kmeans_distributed
+    x = clustered_vectors(4000, 32, 40, seed=7)
+    init = x[np.random.default_rng(1).choice(len(x), 64, replace=False)]
+    before = topk_similarity_cuda.launches
+    c_dist, n_dist = _on_one_rank("cuda", lambda mesh: kmeans_distributed(
+        x, 64, mesh, iters=4, spherical=spherical, init_centers=init))
+    assert topk_similarity_cuda.launches == before + 4
+    c_one, n_one = kmeans(x, 64, iters=4, spherical=spherical,
+                          init_centers=init, device=cuda)
+    np.testing.assert_array_equal(n_dist, n_one)
+    np.testing.assert_allclose(c_dist, c_one, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("init", ("uniform", "kmeans++"))
+def test_kmeans_distributed_seeded_on_nccl_matches_kmeans(cuda, init):
+    """Seeded from ``seed`` on the card's one rank (the chosen rows, and
+    k-means++'s D² totals, sent through NCCL), ``kmeans_distributed``
+    starts from ``kmeans``'s centres and ends on its centres and
+    counts."""
+    from repro_torch.core.kmeans import kmeans, kmeans_distributed
+    x = clustered_vectors(4000, 32, 40, seed=7)
+    c_dist, n_dist = _on_one_rank("cuda", lambda mesh: kmeans_distributed(
+        x, 64, mesh, iters=4, seed=5, init=init))
+    c_one, n_one = kmeans(x, 64, iters=4, seed=5, init=init, device=cuda)
+    np.testing.assert_array_equal(n_dist, n_one)
+    np.testing.assert_allclose(c_dist, c_one, rtol=1e-5, atol=1e-6)

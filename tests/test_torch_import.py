@@ -48,6 +48,9 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.launch.build_index"} <= set(MODULES)
     assert {"repro_torch.store.maintenance", "repro_torch.core.lsh",
             "repro_torch.launch.maintain"} <= set(MODULES)
+    assert {"repro_torch.data.vectors", "repro_torch.launch.mesh",
+            "repro_torch.common.sharding", "repro_torch.core.kmeans",
+            "repro_torch.core.distributed"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
