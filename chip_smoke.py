@@ -82,6 +82,21 @@ Phases, each raising on failure (the script then exits non-zero):
      factors again, each followed by a hot swap: every in-flight future resolves once and recall@10
      stays within 0.02 of the engine's before maintenance (under 100 s,
      it raises past that).
+  10. the multi-device path at world size 1: a (1, 1) mesh on NCCL, the
+     SPMD search over phase 4's index and the distributed build's reads
+     and k-means (under 60 s);
+  11. training (under 120 s): ``train_step`` at full width, bf16, for
+     mamba2-780m (batch 4 x 640, 4 steps: every leaf's gradient non-zero
+     at step 1, the SSD kernel exactly twice a layer and step under remat
+     and its backward kernel once) and qwen3-1.7b (batch 8 x 256, 3
+     steps, no kernel of the port), with step times, tokens/s and peak
+     device memory, and a bf16 checkpoint round trip; the reduced configs
+     trained on the card and on the CPU from the same parameters and
+     batches (losses and step-1 gradients within 1e-4), then the
+     reference test's 60-step run on the card (its loss criterion); and
+     ``python -m repro_torch.launch.train`` in a subprocess, its
+     checkpoint loaded back bit for bit. Phase 2 holds the SSD's backward
+     kernel against float64 autograd at three shapes.
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -654,6 +669,128 @@ def check_ssd(dev, *, b: int = 1, s: int = 513, dtype: str = "bfloat16",
                     else FP32_FLOPS)}
 
 
+# the SSD backward against autograd through the plain scan on float64
+# copies of the same inputs (the truth), as a share of each output's
+# largest |value|: float32 outputs (ddt, da, d_initial_state, and dx, dB,
+# dC on float32 inputs) within 1e-4, the kernel's sums being float32 in
+# another order over float64 prefix sums; bf16 outputs (dx, dB, dC on
+# bf16 inputs) within 2^-8, their own rounding to bf16 of values up to
+# the largest. The plain float32 version's share is recorded beside.
+SSD_BWD_TOL = 1e-4
+SSD_BWD_TOL_BF16 = 2.0 ** -8
+SSD_BWD_OUTPUTS = ("dx", "ddt", "da", "db", "dc", "dinit")
+
+
+def ssd_backward_ops(b: int, s: int, h: int, p: int, n: int,
+                     chunk: int) -> float:
+    """The least operations of the SSD's backward on these inputs,
+    counted over the rows each chunk holds: C B^T and the two products
+    with G over the causal lower triangle once per (b, chunk), and per
+    head the six [rows, N] x [N or rows, P] state products (each chunk's
+    state and state-gradient terms, B Sb, C S_c, and the head's parts of
+    dB and dC) and two over the triangle (dy x^T, and dx's)."""
+    q = min(chunk, s)
+    rows = [min(q, s - t) for t in range(0, s, q)]
+    return float(sum(b * (r * (r + 1) // 2) * n * 2 * 3 + b * h * (
+        r * n * p * 2 * 6 + (r * (r + 1) // 2) * p * 2 * 2) for r in rows))
+
+
+def check_ssd_backward(dev, *, b: int = 4, s: int = 640,
+                       dtype: str = "bfloat16", h: int = 48, p: int = 64,
+                       n: int = 128, chunk: int = 256, reps: int = 10,
+                       seed: int = 5) -> dict:
+    """The SSD scan's backward kernel (``ssd_backward_cuda``) against
+    ``ssd_backward_ref`` on float64 copies of the same inputs, at
+    mamba2-780m's width: inputs made as ``check_ssd`` makes them (B and C
+    the halves of one [B, S, 2N] projection, read in place), dy float32
+    as ``ssd_cuda``'s y is. Launches rotate over copies of the inputs
+    that exceed the L2 four times, as a layer's backward in a train step
+    reads them from device memory."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import ssd_backward_cuda, ssd_backward_ref
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, h, p, device=dev, generator=g).to(dt_)
+    dt = F.softplus(torch.randn(b, s, h, device=dev, generator=g))
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    bc = torch.randn(b, s, 2 * n, device=dev, generator=g).to(dt_)
+    dy = torch.randn(b, s, h, p, device=dev, generator=g)
+    out = ssd_backward_cuda(x, dt, a, bc[..., :n], bc[..., n:], dy,
+                            chunk=chunk)
+    torch.cuda.synchronize()
+    bcd = bc.double()
+    truth = ssd_backward_ref(x.double(), dt.double(), a.double(),
+                             bcd[..., :n], bcd[..., n:], dy.double(),
+                             chunk=chunk)
+    bcf = bc.float()
+
+    def plain():
+        return ssd_backward_ref(x.float(), dt, a, bcf[..., :n],
+                                bcf[..., n:], dy, chunk=chunk)
+    plain_out = plain()
+    errs, abs_errs, plain_errs, scales, ok = {}, {}, {}, {}, True
+    for name, got, want, pl in zip(SSD_BWD_OUTPUTS, out, truth, plain_out):
+        scales[name] = float(want.abs().max())
+        abs_errs[name] = float((got.double() - want).abs().max())
+        errs[name] = abs_errs[name] / scales[name]
+        plain_errs[name] = float((pl.double() - want).abs().max()) / \
+            scales[name]
+        tol = SSD_BWD_TOL_BF16 if got.dtype == torch.bfloat16 \
+            else SSD_BWD_TOL
+        ok &= bool(torch.isfinite(got).all()) and errs[name] <= tol
+    del truth, plain_out, bcd
+    if not ok:
+        raise AssertionError(
+            f"ssd_backward B={b} S={s} {dtype}: kernel disagrees with "
+            f"float64 (share of each output's largest |value|: {errs}; "
+            f"tolerance {SSD_BWD_TOL}, {SSD_BWD_TOL_BF16} for bf16 "
+            f"outputs)")
+    again = ssd_backward_cuda(x, dt, a, bc[..., :n], bc[..., n:], dy,
+                              chunk=chunk)
+    repeats = all(torch.equal(u, v) for u, v in zip(out, again))
+    if not repeats:
+        raise AssertionError(f"ssd_backward B={b} S={s} {dtype}: two calls "
+                             f"on the same inputs differ")
+    in_bytes = x.nbytes + dt.nbytes + bc.nbytes + dy.nbytes
+    copies = max(1, -(-int(4 * L2_BYTES) // in_bytes))
+    inputs = [(x, dt, bc, dy)] + [tuple(t.clone() for t in (x, dt, bc, dy))
+                                  for _ in range(copies - 1)]
+    it = itertools.cycle(inputs)
+
+    def launch():
+        xx, dd, bb, yy = next(it)
+        return ssd_backward_cuda(xx, dd, a, bb[..., :n], bb[..., n:], yy,
+                                 chunk=chunk)
+    ms = cuda_ms(launch, reps)
+    kernel_ms, per_call, stages = device_kernels_of(
+        launch, max(3, reps // 2), "ssdb_kernel")
+    plain_ms = cuda_ms(plain, 2)
+    ops = ssd_backward_ops(b, s, h, p, n, chunk)
+    nbytes = in_bytes + a.nbytes + sum(t.nbytes for t in out)
+    del inputs, it, out, again
+    torch.cuda.empty_cache()
+    return {"shape": f"B={b} S={s} H={h} P={p} N={n} chunk={chunk} {dtype}",
+            "max_abs_err": max(abs_errs.values()), "abs_err": abs_errs,
+            "err_share": errs,
+            "plain_f32_err_share": plain_errs, "scale": scales,
+            "tolerance": SSD_BWD_TOL, "tolerance_bf16": SSD_BWD_TOL_BF16,
+            "repeats_bit_for_bit": repeats,
+            "ms": ms, "kernel_device_ms": kernel_ms,
+            "cuda_kernels_per_call": per_call, "stage_device_ms": stages,
+            "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes,
+            "ops": ops, "input_copies": copies,
+            "fp32_fma_bound_ms": bound(nbytes, ops, FP32_FLOPS)["bound_ms"],
+            **bound(nbytes, ops, BF16_FLOPS if dtype == "bfloat16"
+                    else FP32_FLOPS)}
+
+
+def fmt_share(shares: dict) -> str:
+    return ", ".join(f"{k} {v:.2e}" for k, v in shares.items())
+
+
 def fmt_ms(by_name: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in sorted(
         by_name.items(), key=lambda kv: -kv[1]))
@@ -663,7 +800,8 @@ def kernels_vs_plain(dev, n: int) -> dict:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"beam_search": [], "merge_topk": [], "topk_distance": [],
-           "quant_distance": [], "decode_attention": [], "ssd": []}
+           "quant_distance": [], "decode_attention": [], "ssd": [],
+           "ssd_backward": []}
     for kw in beam_rows(n):
         r = check_beam(dev, **kw)
         res["beam_search"].append(r)
@@ -742,6 +880,18 @@ def kernels_vs_plain(dev, n: int) -> dict:
             f"{fmt_ms(r['stage_device_ms'])}) plain "
             f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
+    # its backward: phase 11a's layer shape (the train step's call), then
+    # the forward's two rows
+    for kw in (dict(), dict(b=1, s=513), dict(b=4, s=4096, reps=5)):
+        r = check_ssd_backward(dev, **kw)
+        res["ssd_backward"].append(r)
+        log(f"ssd_backward {r['shape']}: error shares "
+            f"{fmt_share(r['err_share'])} (plain float32 "
+            f"{fmt_share(r['plain_f32_err_share'])}) kernel {r['ms']:.4f} ms (device {r['kernel_device_ms']:.4f} ms "
+            f"in {r['cuda_kernels_per_call']:g} CUDA kernels: "
+            f"{fmt_ms(r['stage_device_ms'])}) plain {r['plain_ms']:.3f} ms "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}; float32 FMA "
+            f"bound {r['fp32_fma_bound_ms']:.4f} ms)")
     return res
 
 
@@ -2691,8 +2841,301 @@ def multi_device_path(state: dict) -> dict:
     return res
 
 
-KERNELS = {
-    "beam_search": ("cuda", "src/repro_torch/csrc/beam_search.cu",
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+PHASE11_LIMIT_S = 120.0
+# 11a and 11b: (arch, batch, seq, steps) at full width (bf16, synthetic
+# parameters from a generator seeded 0 on the card), AdamW at the
+# launcher's defaults for that many steps (lr 3e-3, warmup a tenth)
+TRAIN_CELLS = (("mamba2-780m", 4, 640, 4), ("qwen3-1.7b", 8, 256, 3))
+TRAIN_LR = 3e-3
+# 11c: the card's train step against the CPU's on the reduced configs
+# (float32): the losses of the first steps and the first step's gradients
+# (as a share of each leaf's largest |g|) within TRAIN_CPU_TOL; both sum
+# in float32, in another order; mamba2 at 80 rows is three chunks of 32,
+# the last padded
+TRAIN_CPU_TOL = 1e-4
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 8, 80, 3
+# then the reference test's run (tests/test_training.py::
+# test_train_loss_decreases): its optimizer, batch, sequence and criterion
+REF_TEST_OPT = dict(lr=5e-3, warmup_steps=5, total_steps=120,
+                    weight_decay=0.0)
+LOSS_RUN = dict(steps=60, batch=8, seq=32, margin=0.1)
+# 11d: the launcher in a subprocess
+LAUNCHER_STEPS = 20
+
+
+def _batch_on(b, dev) -> dict:
+    import torch
+    return {k: torch.from_numpy(getattr(b, k)).to(dev)
+            for k in ("inputs", "targets", "mask")}
+
+
+def _step_grads(params, cfg, b, dev) -> tuple:
+    """(loss, {leaf path: gradient}) of ``loss_fn`` on one batch, by
+    ``torch.autograd.grad`` over every leaf (a check's own run)."""
+    import torch
+    from repro_torch.train import tree as TT
+    from repro_torch.train.train_step import loss_fn
+    flat = TT.items(params)
+    leaves = [t.detach().requires_grad_(True) for _, t in flat]
+    live = TT.unflatten({k: v for (k, _), v in zip(flat, leaves)})
+    total, (loss, _) = loss_fn(live, cfg, _batch_on(b, dev))
+    grads = torch.autograd.grad(total, leaves)
+    return float(loss.detach()), {k: g for (k, _), g in zip(flat, grads)}
+
+
+def train_full_width(dev, arch: str, batch: int, seq: int,
+                     steps: int) -> dict:
+    """11a / 11b: ``train_step`` at full width. Losses and gradient norms
+    finite, every leaf's gradient non-zero at step 1 (its first moment
+    after the step, (1 - b1) times the clipped gradient), the launches of
+    the port's kernels exact: under remat each Mamba2 layer runs the
+    forward scan twice a step and its backward once, and nothing else. A
+    bf16 slice of mamba2's trained parameters goes through a checkpoint
+    and back, bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.common.config import BlockKind
+    from repro_torch.common.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import tree as TT
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import train_step
+    cfg = get_arch(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    state = init_opt_state(params)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(steps // 10, 1),
+                      total_steps=steps)
+    data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=0))
+    out = {"batch": batch, "seq": seq, "steps": steps, "dtype": cfg.dtype,
+           "params": sum(t.numel() for t in TT.leaves(params))}
+    before = launch_counts()
+    losses, norms, times = [], [], []
+    for i in range(steps):
+        b = _batch_on(next(data), dev)
+        (params, state, m), t = synced(lambda: train_step(
+            params, state, b, cfg=cfg, opt_cfg=opt))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(t)
+        if i == 0:
+            out["leaves"] = len(TT.leaves(state.mu))
+            out["leaves_without_gradient"] = [
+                k for k, mu in TT.items(state.mu)
+                if not bool(mu.abs().max() > 0)]
+    out["launches"] = {k: n - before[k] for k, n in launch_counts().items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    mean_s = float(np.mean(times[1:]))
+    out.update(losses=losses, grad_norms=norms, step_s=times,
+               step_s_mean=mean_s, tokens_per_s=batch * seq / mean_s)
+    mamba = sum(k == BlockKind.MAMBA2 for k in cfg.layer_kinds())
+    want = {k: 0 for k in out["launches"]}
+    want.update(ssd=2 * mamba * steps, ssd_backward=mamba * steps)
+    if arch == "mamba2-780m":
+        sub = {"embedding": params["embedding"][:4096],
+               "blocks": {"mamba2": {k: v[:2] for k, v in
+                                     params["blocks"]["mamba2"].items()}}}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+        try:
+            save_checkpoint(tmp, sub, step=steps)
+            back, _, step = load_checkpoint(tmp, sub)
+            out["bf16_checkpoint_equal"] = step == steps and all(
+                u.dtype == v.dtype and torch.equal(u, v)
+                for u, v in zip(TT.leaves(back), TT.leaves(sub)))
+            out["bf16_checkpoint_leaves"] = len(TT.leaves(sub))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    del params, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"11 {arch} full width ({out['params'] / 1e9:.3f} B params, "
+        f"{cfg.dtype}, batch {batch} x {seq}): losses "
+        f"{[round(v, 4) for v in losses]}, grad norms "
+        f"{[round(v, 4) for v in norms]}; step {mean_s * 1e3:.1f} ms after "
+        f"the first ({times[0] * 1e3:.1f} ms), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {out['peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in out['launches'].items() if v} }; leaves "
+        f"without gradient {out['leaves_without_gradient']} of "
+        f"{out['leaves']}"
+        + (f"; bf16 checkpoint of {out['bf16_checkpoint_leaves']} leaves "
+           f"equal {out['bf16_checkpoint_equal']}" if "bf16_checkpoint_equal"
+           in out else ""))
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()) \
+            or out["leaves_without_gradient"] or out["launches"] != want \
+            or not out.get("bf16_checkpoint_equal", True):
+        raise AssertionError(f"11 {arch} full width: {out} (launches "
+                             f"expected {want})")
+    return out
+
+
+def train_card_vs_cpu(dev, arch: str, mesh, checks: dict) -> dict:
+    """11c: the reduced config trained on the card (the SSD kernels) and
+    on the CPU (plain versions) from the same parameters and batches; then
+    the reference test's 60-step run on the card through
+    ``make_train_step`` and ``init_sharded`` on ``mesh``."""
+    import torch
+    from repro_torch.common.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import tree as TT
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import (init_sharded, make_train_step,
+                                              train_step)
+    cfg = get_arch(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = TT.map_tree(lambda t: t.to(dev, copy=True), cpu)
+    data = iter(SyntheticLM(cfg, batch=TRAIN_CPU_BATCH,
+                            seq_len=TRAIN_CPU_SEQ, seed=0))
+    batches = [next(data) for _ in range(TRAIN_CPU_STEPS)]
+    _, g_cpu = _step_grads(cpu, cfg, batches[0], "cpu")
+    _, g_card = uncounted(checks, lambda: _step_grads(card, cfg, batches[0],
+                                                      dev))
+    shares = {k: float((g.cpu() - g_cpu[k]).abs().max())
+              / float(g_cpu[k].abs().max()) for k, g in g_card.items()}
+    zero = [k for k, g in g_card.items() if not bool(g.abs().max() > 0)]
+    opt = AdamWConfig(**REF_TEST_OPT)
+    runs = {}
+    for name, params, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        state = init_opt_state(params)
+        losses = []
+        for b in batches:
+            params, state, m = train_step(params, state, _batch_on(b, d),
+                                          cfg=cfg, opt_cfg=opt)
+            losses.append(float(m["loss"]))
+        runs[name] = losses
+    loss_diff = float(np.abs(np.subtract(runs["card"], runs["cpu"])).max())
+    step_fn, _ = make_train_step(mesh, cfg, opt)
+    params, state = init_sharded(mesh, cfg, seed=0)
+    data = iter(SyntheticLM(cfg, batch=LOSS_RUN["batch"],
+                            seq_len=LOSS_RUN["seq"], seed=0))
+    run, t = [], time.perf_counter()
+    for _ in range(LOSS_RUN["steps"]):
+        b = next(data)
+        params, state, m = step_fn(params, state, {
+            "inputs": b.inputs, "targets": b.targets, "mask": b.mask})
+        run.append(float(m["loss"]))
+    run_s = time.perf_counter() - t
+    first, last = float(np.mean(run[:5])), float(np.mean(run[-5:]))
+    out = {"max_grad_err_share": max(shares.values()),
+           "grad_err_share": shares, "leaves_without_gradient": zero,
+           "losses_cpu": runs["cpu"], "losses_card": runs["card"],
+           "max_loss_diff": loss_diff, "run_losses": run,
+           "run_first5_mean": first, "run_last5_mean": last,
+           "run_s": run_s}
+    log(f"11c {arch} reduced: card vs CPU losses {runs['card']} / "
+        f"{runs['cpu']} (max diff {loss_diff:.3g}), step-1 gradients "
+        f"within {out['max_grad_err_share']:.3g} of each leaf's largest "
+        f"|g|, leaves without gradient {zero}; {LOSS_RUN['steps']} steps "
+        f"on the card in {run_s:.2f} s: mean loss {first:.4f} -> "
+        f"{last:.4f}")
+    if loss_diff > TRAIN_CPU_TOL or out["max_grad_err_share"] > \
+            TRAIN_CPU_TOL or zero or not np.isfinite(run).all() or \
+            not last < first - LOSS_RUN["margin"]:
+        raise AssertionError(f"11c {arch}: {out}")
+    return out
+
+
+def train_launcher(dev) -> dict:
+    """11d: ``python -m repro_torch.launch.train`` in a subprocess on the
+    card; its checkpoint loads back to the parameters and moments the
+    process held (the digests it logged), with the manifest's step."""
+    import shutil
+    import tempfile
+    from repro_torch.common.registry import get_arch
+    from repro_torch.train.checkpoint import load_checkpoint, tree_digest
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import abstract_params
+    arch = "mamba2-780m"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                                   if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+             "--reduced", "--steps", str(LAUNCHER_STEPS), "--ckpt", tmp,
+             "--device", "cuda"], env=env, capture_output=True, text=True,
+            timeout=300)
+        run_s = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise AssertionError(f"11d: the launcher failed "
+                                 f"({proc.returncode}):\n{text[-3000:]}")
+        logged = re.search(r"params digest (\w+), mu (\w+), nu (\w+)", text)
+        template = abstract_params(get_arch(arch).reduced())
+        params, state, step = load_checkpoint(
+            tmp, template, init_opt_state(template), device=dev)
+        loaded = (tree_digest(params), tree_digest(state.mu),
+                  tree_digest(state.nu))
+        losses = [float(v) for v in re.findall(r"loss=([0-9.]+)", text)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"run_s": run_s, "step": step, "opt_step": int(state.step),
+           "digests_equal": logged is not None and logged.groups() == loaded,
+           "logged_losses": losses}
+    log(f"11d launcher: {LAUNCHER_STEPS} steps of reduced {arch} in "
+        f"{run_s:.1f} s (logged losses {losses}); checkpoint step {step}, "
+        f"parameters and moments equal to the process's bit for bit: "
+        f"{out['digests_equal']}")
+    if not out["digests_equal"] or step != LAUNCHER_STEPS or \
+            out["opt_step"] != LAUNCHER_STEPS:
+        raise AssertionError(f"11d: {out}")
+    return out
+
+
+def training_path() -> dict:
+    """Phase 11: training on the card. 11a and 11b at full width, 11c the
+    reduced configs against the CPU and the reference test's run, 11d the
+    launcher and checkpoints. The launch counts are set to 0 at its start
+    and read at its end, less the launches of the checks' own runs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda")
+    res, checks = {}, {}
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    for arch, batch, seq, steps in TRAIN_CELLS:
+        res[arch] = train_full_width(dev, arch, batch, seq, steps)
+    try:
+        mesh = make_local_mesh("cuda")
+        res["card_vs_cpu"] = {arch: train_card_vs_cpu(dev, arch, mesh,
+                                                      checks)
+                              for arch, *_ in TRAIN_CELLS}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    res["launcher"] = train_launcher(dev)
+    res["launches"] = {name: n - checks.get(name, 0)
+                       for name, n in launch_counts().items()}
+    res["check_launches"] = checks
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11: launches {res['launches']} (the checks' own {checks} "
+        f"not counted); {res['phase_s']:.1f} s")
+    missing = [k for k in ("ssd", "ssd_backward") if res["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 11 never launched {missing}: "
+                             f"{res['launches']}")
+    if res["phase_s"] > PHASE11_LIMIT_S:
+        raise AssertionError(f"phase 11 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE11_LIMIT_S:.0f} s")
+    return res
+
+
+KERNELS = {    "beam_search": ("cuda", "src/repro_torch/csrc/beam_search.cu",
                     "src/repro/kernels/beam_search/kernel.py:188"),
     "merge_topk": ("cuda", "src/repro_torch/csrc/merge_topk.cu",
                    "src/repro/kernels/merge_topk/kernel.py:51"),
@@ -2704,6 +3147,9 @@ KERNELS = {
                          "src/repro/kernels/decode_attention/kernel.py:76"),
     "ssd": ("cuda", "src/repro_torch/csrc/ssd.cu",
             "src/repro/kernels/ssd/kernel.py:85"),
+    # no Pallas counterpart: the JAX package differentiates the plain scan
+    "ssd_backward": ("cuda", "src/repro_torch/csrc/ssd_backward.cu",
+                     "none: JAX autodiff of src/repro/models/ssm.py:73"),
 }
 
 
@@ -2743,6 +3189,7 @@ def main() -> int:
         state, result["main_path"]["float32"]["recall@10"])
     result["store"], result["maintenance"] = store_path(state)
     result["multi_device"] = multi_device_path(state)
+    result["training"] = training_path()
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -2755,7 +3202,7 @@ def main() -> int:
             "launches": sum(result[phase]["launches"][name] for phase in
                             ("main_path", "lm_path", "ssm_path",
                              "serving", "store", "maintenance",
-                             "multi_device")),
+                             "multi_device", "training")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

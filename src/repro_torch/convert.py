@@ -10,7 +10,8 @@ device. :func:`lm_params_from_reference` does the same for the language
 model's parameter tree. Neither imports anything of the reference
 package: a caller extracts the arrays (for example with
 ``dataclasses.asdict`` on each graph, or ``jax.tree.map(np.asarray,
-params)``) and passes them in.
+params)``) and passes them in; :func:`opt_state_from_reference` carries
+an AdamW state's step and moments across the same way.
 """
 from __future__ import annotations
 
@@ -123,3 +124,17 @@ def lm_params_from_reference(params: Mapping, cfg: ArchConfig,
         out["blocks"][group] = {key: _tensor(a, dev)
                                 for key, a in layers.items()}
     return out
+
+
+def opt_state_from_reference(step, mu: Mapping, nu: Mapping, cfg: ArchConfig,
+                             device: DeviceLike = "cuda"):
+    """The port's ``OptState`` from a reference AdamW state's step and its
+    two moment trees as numpy arrays (float32, shaped like the
+    parameters; see :func:`lm_params_from_reference`)."""
+    from repro_torch.train.optimizer import OptState
+    dev = resolve_device(device)
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        mu=lm_params_from_reference(mu, cfg, dev),
+        nu=lm_params_from_reference(nu, cfg, dev))

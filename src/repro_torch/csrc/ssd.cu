@@ -49,14 +49,21 @@
 // row-major shared memory ([k][n], rows padded to 16-byte multiples that
 // are conflict-free for ldmatrix); `ldmatrix.trans` turns them into mma
 // fragments, so nothing is transposed on the way in.
-// Products run on the tensor cores, `mma.sync` m16n8k16 bf16 -> float32.
+// Products run on the tensor cores, `mma.sync` m16n8k16 -> float32.
 // bf16 inputs (x, B, C) go in as their own bits: products of bf16 values
-// are exact in float32. A float32 operand (the scores, the weighted x of
-// the states, the carried state, and every input on the float32 path) is
-// split into hi + lo bf16 parts, hi = bf16(v), lo = bf16(v - hi), and
-// multiplied in two passes (three when both operands are split, the
-// lo x lo term dropped): about 2^-16 of each product, against the 1e-4
-// of max |y| that the port holds the kernel to. All sums are float32.
+// are exact in float32; a float32 operand of the bf16 path (the scores,
+// the weighted x of the states, the carried state) is split into hi + lo
+// bf16 parts, hi = bf16(v), lo = bf16(v - hi), and multiplied in two
+// passes: about 2^-18 of each product. On the float32 path every operand
+// is split, into fp16 parts (hi = fp16(v), lo = fp16(v - hi), 2^-22 of v
+// left over), and multiplied on the fp16 tensor cores in three passes,
+// the lo x lo term dropped: about 2^-20 of each product. bf16 parts there
+// left 2^-18 of each operand and 2^-18 in the dropped term, and a train
+// step's gradients, which amplify the output's error many times over,
+// parted from float32 autograd by more than 1e-4 of their largest. The
+// operands stay far inside fp16's range (|scores| ~ 10^2, states
+// ~ 10^1); values under 2^-14 lose relative precision but no more than
+// 2^-24 in absolute terms. All sums are float32.
 //
 // What still bounds it: at B = 4, S = 4,096 the output and state stages
 // take most of the time, on mma.sync's issue rate and the per-element
@@ -65,6 +72,7 @@
 // twice) is what keeps it far from the bytes bound.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -103,19 +111,43 @@ __device__ __forceinline__ uint16_t bf16_bits(float v) {
 __device__ __forceinline__ float bf16_value(uint16_t h) {
   return __uint_as_float(static_cast<unsigned>(h) << 16);
 }
-// v = hi + lo + O(2^-16 v)
+// v = hi + lo + O(2^-18 v) with bf16 pieces, O(2^-22 v) with fp16 pieces
+// (kF16: the float32 path, where every operand is split and the
+// products run on fp16 tensor cores; bf16 inputs are exact bf16 and their
+// path splits its float32 intermediates into bf16 pieces)
+__device__ __forceinline__ uint16_t f16_bits(float v) {
+  return __half_as_ushort(__float2half_rn(v));
+}
+__device__ __forceinline__ float f16_value(uint16_t h) {
+  return __half2float(__ushort_as_half(h));
+}
+template <bool kF16>
 __device__ __forceinline__ void split(float v, uint16_t& hi, uint16_t& lo) {
-  hi = bf16_bits(v);
-  lo = bf16_bits(v - bf16_value(hi));
+  if constexpr (kF16) {
+    hi = f16_bits(v);
+    lo = f16_bits(v - f16_value(hi));
+  } else {
+    hi = bf16_bits(v);
+    lo = bf16_bits(v - bf16_value(hi));
+  }
 }
 // the same for two values, packed (v0 in the low half): two conversions
+template <bool kF16>
 __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
                                        uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 f = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - f.x, v1 - f.y);
-  hi = reinterpret_cast<const uint32_t&>(h);
-  lo = reinterpret_cast<const uint32_t&>(l);
+  if constexpr (kF16) {
+    const __half2 h = __floats2half2_rn(v0, v1);
+    const float2 f = __half22float2(h);
+    const __half2 l = __floats2half2_rn(v0 - f.x, v1 - f.y);
+    hi = reinterpret_cast<const uint32_t&>(h);
+    lo = reinterpret_cast<const uint32_t&>(l);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    const float2 f = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - f.x, v1 - f.y);
+    hi = reinterpret_cast<const uint32_t&>(h);
+    lo = reinterpret_cast<const uint32_t&>(l);
+  }
 }
 __device__ __forceinline__ uint32_t pack(uint16_t k0, uint16_t k1) {
   return static_cast<uint32_t>(k0) | (static_cast<uint32_t>(k1) << 16);
@@ -164,8 +196,10 @@ __device__ __forceinline__ void load8(const uint16_t* row, int c0, int ncols,
       f.v[u] = c0 + u < ncols ? bf16_value(row[c0 + u]) : 0.f;
   }
 }
+template <bool kF16>
 __device__ __forceinline__ void load8_bits(const uint16_t* row, int c0,
                                            int ncols, bool vec, Bits8& b) {
+  static_assert(!kF16, "bf16 inputs go in as bf16 pieces");
   if (vec && c0 < ncols) {
     const uint4 r = *reinterpret_cast<const uint4*>(row + c0);
     const unsigned w[4] = {r.x, r.y, r.z, r.w};
@@ -182,17 +216,20 @@ __device__ __forceinline__ void load8_bits(const uint16_t* row, int c0,
 #pragma unroll
   for (int u = 0; u < 8; ++u) b.lo[u] = 0;
 }
+template <bool kF16>
 __device__ __forceinline__ void load8_bits(const float* row, int c0,
                                            int ncols, bool vec, Bits8& b) {
   Floats8 f;
   load8(row, c0, ncols, vec, f);
 #pragma unroll
-  for (int u = 0; u < 8; ++u) split(f.v[u], b.hi[u], b.lo[u]);
+  for (int u = 0; u < 8; ++u) split<kF16>(f.v[u], b.hi[u], b.lo[u]);
 }
 // elements c, c + 1 as a packed pair of bf16 hi parts and of lo parts
+template <bool kF16>
 __device__ __forceinline__ void load_pair_bits(const uint16_t* row, int c,
                                                int ncols, bool vec,
                                                uint32_t& hi, uint32_t& lo) {
+  static_assert(!kF16, "bf16 inputs go in as bf16 pieces");
   lo = 0;
   if (vec && c < ncols)
     hi = *reinterpret_cast<const uint32_t*>(row + c);
@@ -200,6 +237,7 @@ __device__ __forceinline__ void load_pair_bits(const uint16_t* row, int c,
     hi = pack(c < ncols ? row[c] : static_cast<uint16_t>(0),
               c + 1 < ncols ? row[c + 1] : static_cast<uint16_t>(0));
 }
+template <bool kF16>
 __device__ __forceinline__ void load_pair_bits(const float* row, int c,
                                                int ncols, bool vec,
                                                uint32_t& hi, uint32_t& lo) {
@@ -212,7 +250,7 @@ __device__ __forceinline__ void load_pair_bits(const float* row, int c,
     v0 = c < ncols ? row[c] : 0.f;
     v1 = c + 1 < ncols ? row[c + 1] : 0.f;
   }
-  split2(v0, v1, hi, lo);
+  split2<kF16>(v0, v1, hi, lo);
 }
 
 // Stage `groups` groups of eight elements into shared memory, with the
@@ -250,13 +288,21 @@ __device__ __forceinline__ void store8(uint16_t* hi, uint16_t* lo,
 // Fragments (g = lane / 4, t = lane % 4): a0 (g, 2t..), a1 (g + 8, 2t..),
 // a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); b0 (k 2t.., n g), b1 (k 2t + 8..,
 // n g); d0, d1 (g, 2t, 2t + 1), d2, d3 (g + 8, 2t, 2t + 1).
+template <bool kF16>
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kF16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
@@ -343,8 +389,8 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel_cb(const Params p) {
       kCbRows * kG,
       [&](int gi, Bits8& v) {
         const int i = i0 + gi / kG;
-        load8_bits(cg + (size_t)i * p.c_ss, (gi % kG) * 8, i < rows ? p.N : 0,
-                   p.vec_c, v);
+        load8_bits<kSplit>(cg + (size_t)i * p.c_ss, (gi % kG) * 8,
+                           i < rows ? p.N : 0, p.vec_c, v);
       },
       [&](int gi, const Bits8& v) {
         const int o = (gi / kG) * kLd + (gi % kG) * 8;
@@ -354,8 +400,8 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel_cb(const Params p) {
       j_rows * kG,
       [&](int gi, Bits8& v) {
         const int j = gi / kG;
-        load8_bits(bg + (size_t)j * p.b_ss, (gi % kG) * 8, j < rows ? p.N : 0,
-                   p.vec_b, v);
+        load8_bits<kSplit>(bg + (size_t)j * p.b_ss, (gi % kG) * 8,
+                           j < rows ? p.N : 0, p.vec_b, v);
       },
       [&](int gi, const Bits8& v) {
         const int o = (gi / kG) * kLd + (gi % kG) * 8;
@@ -396,10 +442,11 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel_cb(const Params p) {
       const int k = ks * 16 + 2 * t;
       const uint32_t bh0 = pair(sBh, j0 + g, kLd, k);
       const uint32_t bh1 = pair(sBh, j0 + g, kLd, k + 8);
-      mma(d, ah[ks], bh0, bh1);
+      mma<kSplit>(d, ah[ks], bh0, bh1);
       if (kSplit) {
-        mma(d, al[ks], bh0, bh1);
-        mma(d, ah[ks], pair(sBl, j0 + g, kLd, k), pair(sBl, j0 + g, kLd, k + 8));
+        mma<kSplit>(d, al[ks], bh0, bh1);
+        mma<kSplit>(d, ah[ks], pair(sBl, j0 + g, kLd, k),
+                    pair(sBl, j0 + g, kLd, k + 8));
       }
     }
     const int i = i0 + r0 + g, j = j0 + 2 * t;
@@ -463,14 +510,15 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_kernel_states(
           const float w = sW[jb + jj];
           Bits8 s8;
 #pragma unroll
-          for (int u = 0; u < 8; ++u) split(v.v[u] * w, s8.hi[u], s8.lo[u]);
+          for (int u = 0; u < 8; ++u)
+            split<kSplit>(v.v[u] * w, s8.hi[u], s8.lo[u]);
           store8(sXh + off, sXl + off, s8);
         });
     stage<kThreads, Bits8>(
         kJBlock * kGN,
         [&](int gi, Bits8& v) {
           const int j = jb + gi / kGN;
-          load8_bits(bg + (size_t)j * p.b_ss, (gi % kGN) * 8,
+          load8_bits<kSplit>(bg + (size_t)j * p.b_ss, (gi % kGN) * 8,
                      j < rows ? p.N : 0, p.vec_b, v);
         },
         [&](int gi, const Bits8& v) {
@@ -498,9 +546,9 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_kernel_states(
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           float (&d)[4] = acc[2 * pp + u];
-          mma(d, ah, bh[2 * u], bh[2 * u + 1]);
-          mma(d, ah, bl[2 * u], bl[2 * u + 1]);
-          if (kSplit) mma(d, al, bh[2 * u], bh[2 * u + 1]);
+          mma<kSplit>(d, ah, bh[2 * u], bh[2 * u + 1]);
+          mma<kSplit>(d, ah, bl[2 * u], bl[2 * u + 1]);
+          if (kSplit) mma<kSplit>(d, al, bh[2 * u], bh[2 * u + 1]);
         }
       }
     }
@@ -605,8 +653,8 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_kernel_out(const Params p) {
       rows16 * kGP,
       [&](int gi, Bits8& v) {
         const int j = gi / kGP;
-        load8_bits(xg + (size_t)j * x_row, (gi % kGP) * 8, j < rows ? p.P : 0,
-                   p.vec_x, v);
+        load8_bits<kSplit>(xg + (size_t)j * x_row, (gi % kGP) * 8,
+                           j < rows ? p.P : 0, p.vec_x, v);
       },
       [&](int gi, const Bits8& v) {
         const int off = (gi / kGP) * kLdX + (gi % kGP) * 8;
@@ -618,8 +666,8 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_kernel_out(const Params p) {
         Np * kGP,
         [&](int gi, Bits8& v) {
           const int n = gi / kGP;
-          load8_bits(sp + (size_t)n * p.P, (gi % kGP) * 8, n < p.N ? p.P : 0,
-                     p.P % 8 == 0, v);
+          load8_bits<kSplit>(sp + (size_t)n * p.P, (gi % kGP) * 8,
+                             n < p.N ? p.P : 0, p.P % 8 == 0, v);
         },
         [&](int gi, const Bits8& v) {
           const int off = (gi / kGP) * kLdX + (gi % kGP) * 8;
@@ -653,8 +701,9 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_kernel_out(const Params p) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int r = (q & 1) ? rb : ra;
-          load_pair_bits(cg + (size_t)r * p.c_ss, k0 + 2 * t + 8 * (q >> 1),
-                         r < rows ? p.N : 0, p.vec_c, hi[q], lo[q]);
+          load_pair_bits<kSplit>(cg + (size_t)r * p.c_ss,
+                                 k0 + 2 * t + 8 * (q >> 1),
+                                 r < rows ? p.N : 0, p.vec_c, hi[q], lo[q]);
         }
       };
       load_c(0, nh, nl);
@@ -674,9 +723,9 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_kernel_out(const Params p) {
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             float (&d)[4] = acc[2 * pp + u];
-            mma(d, ah, bh[2 * u], bh[2 * u + 1]);
-            mma(d, ah, bl[2 * u], bl[2 * u + 1]);
-            if (kSplit) mma(d, al, bh[2 * u], bh[2 * u + 1]);
+            mma<kSplit>(d, ah, bh[2 * u], bh[2 * u + 1]);
+            mma<kSplit>(d, ah, bl[2 * u], bl[2 * u + 1]);
+            if (kSplit) mma<kSplit>(d, al, bh[2 * u], bh[2 * u + 1]);
           }
         }
       }
@@ -726,7 +775,7 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_kernel_out(const Params p) {
           v0 = j <= r ? v0 : 0.f;
           v1 = j + 1 <= r ? v1 : 0.f;
         }
-        split2(v0, v1, ah[q], al[q]);
+        split2<kSplit>(v0, v1, ah[q], al[q]);
       }
 #pragma unroll
       for (int pp = 0; pp < kMaxP / 16; ++pp) {
@@ -740,9 +789,9 @@ __global__ void __launch_bounds__(kThreads, 3) ssd_kernel_out(const Params p) {
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           float (&d)[4] = acc[2 * pp + u];
-          mma(d, ah, bh[2 * u], bh[2 * u + 1]);
-          mma(d, al, bh[2 * u], bh[2 * u + 1]);
-          if (kSplit) mma(d, ah, bl[2 * u], bl[2 * u + 1]);
+          mma<kSplit>(d, ah, bh[2 * u], bh[2 * u + 1]);
+          mma<kSplit>(d, al, bh[2 * u], bh[2 * u + 1]);
+          if (kSplit) mma<kSplit>(d, ah, bl[2 * u], bl[2 * u + 1]);
         }
       }
     }

@@ -1,9 +1,75 @@
-"""Vector datasets for the Pyramid index (numpy copies of
-``repro.data.synthetic``): Deep/SIFT-like clustered descriptors,
-Tiny-like norm-spread vectors for MIPS, and query sets near the data."""
+"""Synthetic data pipelines (numpy copies of ``repro.data.synthetic``):
+token streams for LM training, frontend embeddings for the VLM and audio
+stubs, and the vector sets of the Pyramid index (Deep/SIFT-like
+clustered descriptors, Tiny-like norm-spread vectors for MIPS, and query
+sets near the data). The same seed gives the reference's arrays bit for
+bit: the same numpy generator calls in the same order."""
 from __future__ import annotations
 
+import dataclasses
+from typing import Iterator
+
 import numpy as np
+
+from repro_torch.common.config import ArchConfig
+
+
+# ---------------------------------------------------------------------------
+# LM token pipeline
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TokenBatch:
+    inputs: np.ndarray    # [B, S] int32 (or [B, S, F] f32 for frontends)
+    targets: np.ndarray   # [B, S] int32
+    # loss mask (1 where target counts)
+    mask: np.ndarray      # [B, S] f32
+
+
+class SyntheticLM:
+    """Markov-ish synthetic token stream with learnable structure.
+
+    Tokens follow ``x[t+1] = (a * x[t] + b + noise) % V`` per sequence so a
+    model can reduce loss below uniform: enough signal for a short
+    training run to show learning.
+    """
+
+    def __init__(self, cfg: ArchConfig, batch: int, seq_len: int,
+                 seed: int = 0):
+        self.cfg = cfg
+        self.batch = batch
+        self.seq_len = seq_len
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[TokenBatch]:
+        return self
+
+    def __next__(self) -> TokenBatch:
+        v = self.cfg.vocab_size
+        b, s = self.batch, self.seq_len
+        a = self.rng.integers(1, 8, size=(b, 1))
+        c = self.rng.integers(0, v, size=(b, 1))
+        x0 = self.rng.integers(0, v, size=(b, 1))
+        toks = np.zeros((b, s + 1), dtype=np.int64)
+        toks[:, :1] = x0
+        for t in range(s):
+            noise = self.rng.integers(0, 3, size=(b,))
+            toks[:, t + 1] = (a[:, 0] * toks[:, t] + c[:, 0] + noise) % v
+        if self.cfg.frontend:
+            f = self.cfg.frontend_dim
+            emb = self.rng.normal(size=(b, s, f)).astype(np.float32)
+            return TokenBatch(inputs=emb,
+                              targets=toks[:, 1:].astype(np.int32),
+                              mask=np.ones((b, s), np.float32))
+        return TokenBatch(inputs=toks[:, :-1].astype(np.int32),
+                          targets=toks[:, 1:].astype(np.int32),
+                          mask=np.ones((b, s), np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Vector datasets for Pyramid (paper Table I analogues)
+# ---------------------------------------------------------------------------
 
 
 def clustered_vectors(n: int, d: int, num_clusters: int, *, spread=0.15,

@@ -15,14 +15,15 @@ def _wrappers():
     from repro_torch.kernels.decode_attention.ops import flash_decode_cuda
     from repro_torch.kernels.merge_topk.ops import merge_topk_cuda
     from repro_torch.kernels.quant_distance.ops import quant_scores_cuda
-    from repro_torch.kernels.ssd.ops import ssd_cuda
+    from repro_torch.kernels.ssd.ops import ssd_backward_cuda, ssd_cuda
     from repro_torch.kernels.topk_distance.ops import topk_similarity_cuda
     return {"beam_search": beam_search_cuda,
             "merge_topk": merge_topk_cuda,
             "topk_distance": topk_similarity_cuda,
             "quant_distance": quant_scores_cuda,
             "decode_attention": flash_decode_cuda,
-            "ssd": ssd_cuda}
+            "ssd": ssd_cuda,
+            "ssd_backward": ssd_backward_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

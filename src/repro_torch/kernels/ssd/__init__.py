@@ -1,4 +1,6 @@
-from repro_torch.kernels.ssd.ops import ssd_cuda, ssd_scan
-from repro_torch.kernels.ssd.ref import ssd_ref
+from repro_torch.kernels.ssd.ops import (SSDScan, ssd_backward_cuda,
+                                        ssd_cuda, ssd_scan)
+from repro_torch.kernels.ssd.ref import ssd_backward_ref, ssd_ref
 
-__all__ = ["ssd_cuda", "ssd_ref", "ssd_scan"]
+__all__ = ["SSDScan", "ssd_backward_cuda", "ssd_backward_ref", "ssd_cuda",
+           "ssd_ref", "ssd_scan"]

@@ -11,6 +11,13 @@ One call of ``ssd_cuda`` runs the chunked form in five CUDA kernels
 outputs; see ``csrc/ssd.cu``) and counts one launch. Their scratch, one
 float32 buffer, comes from PyTorch's caching allocator on the current
 stream.
+
+Gradients: ``ssd_cuda``'s outputs carry none, so on the card ``ssd_scan``
+runs the scan through :class:`SSDScan`, a ``torch.autograd.Function``
+whose backward is ``ssd_backward_cuda`` (``csrc/ssd_backward.cu``, eight
+CUDA kernels, one launch counted), whenever grad mode is on and an input
+requires grad. ``ssd_cuda`` itself refuses such inputs, so that no call
+cuts the gradient silently.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ MAX_N = 128       # state dim N
 MAX_CHUNK = 256   # chunk length Q
 
 _lib = None
+_blib = None
 
 
 def _library():
@@ -42,6 +50,76 @@ def _library():
         lib.ssd_scratch_floats.restype = ll
         _lib = lib
     return _lib
+
+
+def _backward_library():
+    global _blib
+    if _blib is None:
+        from repro_torch.kernels import cuda_lib
+        lib = cuda_lib.load("ssd_backward")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ssd_backward_launch.argtypes = [p] * 15 + [i] * 6 + [ll] * 4 \
+            + [i, p]
+        lib.ssd_backward_launch.restype = i
+        lib.ssd_backward_scratch_bytes.argtypes = [i, i, i, i, i, i]
+        lib.ssd_backward_scratch_bytes.restype = ll
+        _blib = lib
+    return _blib
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """A kernel's outputs carry no gradient: refuse inputs that would need
+    one, so that a call outside :class:`SSDScan` cannot cut it."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name} returns tensors without a gradient, and grad mode is "
+            f"on with an input that requires grad: call ssd_scan, which "
+            f"runs the scan through SSDScan and its backward kernel")
+
+
+def _check_inputs(name: str, x, dt, a, b_mat, c_mat, initial_state,
+                  chunk: int) -> None:
+    """Device, dtype, shape and layout checks shared by both kernels."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors")
+    named = [("x", x, (torch.float32, torch.bfloat16)),
+             ("dt", dt, (torch.float32,)), ("a", a, (torch.float32,)),
+             ("b_mat", b_mat, (x.dtype,)), ("c_mat", c_mat, (x.dtype,))]
+    if initial_state is not None:
+        named.append(("initial_state", initial_state, (torch.float32,)))
+    for nm, t, dtypes in named:
+        if t.device != dev:
+            raise ValueError(f"{nm} is on {t.device}, expected {dev}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{nm} has dtype {t.dtype}, expected {dtypes}")
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if bsz < 1 or h < 1 or dt.shape != (bsz, s, h) or a.shape != (h,) \
+            or b_mat.shape != (bsz, s, n) or c_mat.shape != (bsz, s, n) \
+            or (initial_state is not None
+                and initial_state.shape != (bsz, h, n, p)):
+        raise ValueError(
+            f"inconsistent ssd shapes: x {tuple(x.shape)} dt "
+            f"{tuple(dt.shape)} a {tuple(a.shape)} b {tuple(b_mat.shape)} "
+            f"c {tuple(c_mat.shape)}")
+    if not 1 <= p <= MAX_P or not 1 <= n <= MAX_N \
+            or not 1 <= chunk <= MAX_CHUNK or s < 1:
+        raise ValueError(f"ssd: P={p}, N={n}, chunk={chunk}, S={s}; the "
+                         f"kernel takes P <= {MAX_P}, N <= {MAX_N}, chunk "
+                         f"<= {MAX_CHUNK} and S >= 1")
+    for nm, t in (("x", x), ("dt", dt), ("a", a),
+                  ("initial_state", initial_state)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{nm} must be contiguous")
+    for nm, t in (("b_mat", b_mat), ("c_mat", c_mat)):
+        if t.stride(2) != 1 and n > 1:
+            raise ValueError(f"{nm} needs a unit stride over N")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -60,42 +138,14 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     their own row and batch strides, so the two halves of one [B, S, 2N]
     projection need no copy); initial_state [B, H, N, P] float32 or None.
     Returns (y [B, S, H, P] float32, final_state [B, H, N, P] float32).
-    Takes P <= 64, N <= 128 and chunk <= 256."""
+    Takes P <= 64, N <= 128 and chunk <= 256. Raises when grad mode is
+    on and an input requires grad (its outputs carry no gradient; call
+    :func:`ssd_scan`)."""
+    _refuse_grad("ssd_cuda", x, dt, a, b_mat, c_mat, initial_state)
+    _check_inputs("ssd_cuda", x, dt, a, b_mat, c_mat, initial_state, chunk)
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError("ssd_cuda takes CUDA tensors")
-    named = [("x", x, (torch.float32, torch.bfloat16)),
-             ("dt", dt, (torch.float32,)), ("a", a, (torch.float32,)),
-             ("b_mat", b_mat, (x.dtype,)), ("c_mat", c_mat, (x.dtype,))]
-    if initial_state is not None:
-        named.append(("initial_state", initial_state, (torch.float32,)))
-    for name, t, dtypes in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype not in dtypes:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtypes}")
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
-    if bsz < 1 or h < 1 or dt.shape != (bsz, s, h) or a.shape != (h,) \
-            or b_mat.shape != (bsz, s, n) or c_mat.shape != (bsz, s, n) \
-            or (initial_state is not None
-                and initial_state.shape != (bsz, h, n, p)):
-        raise ValueError(
-            f"inconsistent ssd shapes: x {tuple(x.shape)} dt "
-            f"{tuple(dt.shape)} a {tuple(a.shape)} b {tuple(b_mat.shape)} "
-            f"c {tuple(c_mat.shape)}")
-    if not 1 <= p <= MAX_P or not 1 <= n <= MAX_N \
-            or not 1 <= chunk <= MAX_CHUNK or s < 1:
-        raise ValueError(f"ssd: P={p}, N={n}, chunk={chunk}, S={s}; the "
-                         f"kernel takes P <= {MAX_P}, N <= {MAX_N}, chunk "
-                         f"<= {MAX_CHUNK} and S >= 1")
-    for name, t in (("x", x), ("dt", dt), ("a", a),
-                    ("initial_state", initial_state)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("b_mat", b_mat), ("c_mat", c_mat)):
-        if t.stride(2) != 1 and n > 1:
-            raise ValueError(f"{name} needs a unit stride over N")
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=dev)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
     q = min(chunk, s)
@@ -118,13 +168,105 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 ssd_cuda.launches = 0
 
 
+def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b_mat: torch.Tensor, c_mat: torch.Tensor,
+                      dy: torch.Tensor, *, chunk: int,
+                      initial_state: Optional[torch.Tensor] = None,
+                      d_final: Optional[torch.Tensor] = None):
+    """Run ``csrc/ssd_backward.cu``: the gradients of ``ssd_cuda``'s
+    (y, final_state) for the cotangents dy [B, S, H, P] float32 and
+    d_final [B, H, N, P] float32 (None: zero). Inputs as for
+    :func:`ssd_cuda` (B and C read in place through their strides).
+    Returns (dx, ddt, da, db, dc, d_initial_state): dx [B, S, H, P], db and
+    dc [B, S, N] (contiguous) in x's dtype; ddt [B, S, H], da [H] and
+    d_initial_state [B, H, N, P] in float32 (the gradient with respect to
+    a zero initial state when there is none). What autograd through the
+    plain ``ssd_chunked`` gives (:func:`ssd_backward_ref`); float64 prefix
+    sums, float32 products, no atomics."""
+    _refuse_grad("ssd_backward_cuda", x, dt, a, b_mat, c_mat, dy,
+                 initial_state, d_final)
+    _check_inputs("ssd_backward_cuda", x, dt, a, b_mat, c_mat,
+                  initial_state, chunk)
+    dev = x.device
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    for nm, t, shape in (("dy", dy, (bsz, s, h, p)),
+                         ("d_final", d_final, (bsz, h, n, p))):
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{nm} must be a contiguous float32 {shape} "
+                             f"tensor on {dev}")
+    q = min(chunk, s)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=dev)
+    da = torch.empty((h,), dtype=torch.float32, device=dev)
+    db = torch.empty((bsz, s, n), dtype=x.dtype, device=dev)
+    dc = torch.empty((bsz, s, n), dtype=x.dtype, device=dev)
+    dinit = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
+    lib = _backward_library()
+    scratch = torch.empty(lib.ssd_backward_scratch_bytes(bsz, s, h, p, n, q),
+                          dtype=torch.uint8, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = lib.ssd_backward_launch(
+        ptr(x), ptr(dt), ptr(a), ptr(b_mat), ptr(c_mat), ptr(initial_state),
+        ptr(dy), ptr(d_final), ptr(dx), ptr(ddt), ptr(da), ptr(db), ptr(dc),
+        ptr(dinit), ptr(scratch), bsz, s, h, p, n, q, b_mat.stride(0),
+        b_mat.stride(1), c_mat.stride(0), c_mat.stride(1),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd backward kernel launch failed: CUDA error "
+                           f"{err}")
+    ssd_backward_cuda.launches += 1
+    return dx, ddt, da, db, dc, dinit
+
+
+ssd_backward_cuda.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan on the card with its gradient: the forward is
+    ``ssd_cuda`` (y float32, final_state float32), the backward
+    ``ssd_backward_cuda``. Saves the inputs only; the backward recomputes
+    the chunk states it needs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_mat, c_mat, initial_state, chunk: int):
+        y, final = ssd_cuda(x, dt, a, b_mat, c_mat, chunk=chunk,
+                            initial_state=initial_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b_mat, c_mat, initial_state)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a, b_mat, c_mat, initial_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, da, db, dc, dinit = ssd_backward_cuda(
+            x, dt, a, b_mat, c_mat, dy.float().contiguous(), chunk=ctx.chunk,
+            initial_state=initial_state,
+            d_final=None if d_final is None else d_final.float().contiguous())
+        return (dx, ddt, da, db, dc,
+                dinit if initial_state is not None else None, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int = 128,
              initial_state: Optional[torch.Tensor] = None):
     """Mamba2 SSD scan. Returns (y [B,S,H,P], final_state [B,H,N,P]): the
-    kernel (y float32) for CUDA tensors, the plain version (y in x's
-    dtype) for CPU tensors."""
+    kernel (y float32) for CUDA tensors, through :class:`SSDScan` (the
+    backward kernel) when grad mode is on and an input requires grad; the
+    plain version (y in x's dtype, under autograd) for CPU tensors."""
     if x.device.type == "cuda":
+        if _needs_grad(x, dt, a, b_mat, c_mat, initial_state):
+            return SSDScan.apply(x, dt, a, b_mat, c_mat, initial_state,
+                                 chunk)
         return ssd_cuda(x, dt, a, b_mat, c_mat, chunk=chunk,
                         initial_state=initial_state)
     if x.device.type == "cpu":

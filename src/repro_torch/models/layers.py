@@ -1,10 +1,15 @@
-"""Core layers: RMSNorm, SwiGLU MLP and parameter initialisation (port of
-``repro.models.layers``; the name-based sharding rules wait for the
-``torch.distributed`` port)."""
+"""Core layers: RMSNorm, SwiGLU MLP, parameter initialisation and the
+name-based sharding rules (port of ``repro.models.layers``).
+
+Parameters are plain nested dicts. Sharding is name-based: ``spec_for``
+maps (name, ndim) to a logical partition tuple; stacked layer params get a
+leading ``None`` (layer) axis. Logical names resolve through
+``repro_torch.common.sharding.logical_to_sharding_shaped``.
+"""
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,11 +32,99 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
 
 
 def dense_init(shape: Sequence[int], in_axis_size: int, dtype: torch.dtype,
-               generator: torch.Generator,
+               generator: Optional[torch.Generator],
                device: torch.device) -> torch.Tensor:
     """``normal * 1/sqrt(fan_in)`` drawn in float32 from ``generator`` (on
-    the generator's own device), then cast to ``dtype`` on ``device``."""
+    the generator's own device), then cast to ``dtype`` on ``device``. On
+    the ``meta`` device only the shape and dtype are made."""
+    if device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
     w = torch.randn(tuple(shape), generator=generator,
                     device=generator.device, dtype=torch.float32)
     return w.mul_(scale).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# name-based sharding rules
+# ---------------------------------------------------------------------------
+
+_RULES: Dict[str, Tuple] = {
+    # attention
+    "w_q": ("fsdp", "model"),
+    "w_k": ("fsdp", None),
+    "w_v": ("fsdp", None),
+    "w_o": ("model", "fsdp"),
+    "q_norm": (None,),
+    "k_norm": (None,),
+    # dense mlp
+    "w_gate": ("fsdp", "model"),
+    "w_in": ("fsdp", "model"),
+    "w_out": ("model", "fsdp"),
+    # moe -- 'moe_ff' resolves to the model axis when the expert dim does
+    # NOT divide it (e.g. grok's 8 experts on a 16-way model axis), so the
+    # d_ff dim carries the tensor parallelism instead; otherwise replicated
+    "router": ("fsdp", None),
+    "e_gate": ("expert", "fsdp", "moe_ff"),
+    "e_in": ("expert", "fsdp", "moe_ff"),
+    "e_out": ("expert", "moe_ff", "fsdp"),
+    # mamba2
+    "in_proj": ("fsdp", "model"),
+    "dt_w": ("fsdp", "model"),
+    "conv_w": (None, "model"),
+    "conv_b": ("model",),
+    "dt_bias": ("model",),
+    "a_log": ("model",),
+    "d_skip": ("model",),
+    "ssm_norm": ("model",),
+    "out_proj": ("model", "fsdp"),
+    "bc_proj": ("fsdp", None),
+    # embeddings / head / norms: vocab-dim params have V over model and D
+    # replicated (D over the data axis would conflict with the batch
+    # sharding in the lm_head contraction)
+    "embedding": ("model", None),
+    "frontend_proj": (None, None),
+    "lm_head": (None, "model"),
+    "final_norm": (None,),
+    "norm_attn": (None,),
+    "norm_mlp": (None,),
+    "norm_in": (None,),
+}
+
+
+def spec_for(name: str, ndim: int, stacked: bool) -> Tuple:
+    """Logical partition tuple for parameter ``name`` with ``ndim`` dims."""
+    base = _RULES.get(name)
+    if base is None:
+        raise KeyError(f"no sharding rule for param {name!r}")
+    if stacked:
+        base = (None,) + tuple(base)
+    if len(base) != ndim:
+        # rank mismatch (e.g. scalar bias): replicate trailing dims
+        base = tuple(base[:ndim]) if len(base) > ndim else \
+            tuple(base) + (None,) * (ndim - len(base))
+    return tuple(base)
+
+
+def tree_specs(params, stacked_keys=("attention", "mamba2")):
+    """Mirror a param tree with logical partition tuples.
+
+    Subtrees under blocks/attention and blocks/mamba2 are stacked (leading
+    layer axis); blocks/shared_attention is a SINGLE weight-tied block and
+    must NOT be treated as stacked (a leading-None spec on an unstacked
+    2-D weight silently truncates to the wrong axes).
+    """
+
+    def leafify(node, path, stacked):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = leafify(v, path + (k,),
+                                 stacked or (path and path[-1] == "blocks"
+                                             and k in stacked_keys))
+            else:
+                out[k] = spec_for(k, v.ndim if hasattr(v, "ndim")
+                                  else len(v.shape), stacked)
+        return out
+
+    return leafify(params, (), False)

@@ -110,11 +110,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
       initial_state: [B, H, N, P] or None (zero)
 
     Returns: (y [B, S, H, P] in x's dtype, final_state [B, H, N, P]
-    float32). The scores, the weighted inputs and the carried states are
-    cast to the inputs' dtype before their products, as in the reference.
+    float32, or float64 for float64 inputs). The scores, the weighted
+    inputs and the carried states are cast to the inputs' dtype before
+    their products, as in the reference.
     """
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)   # float64 stays
     q = min(chunk, s)
     pad = (-s) % q
     if pad:
@@ -125,11 +127,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     nc = x.shape[1] // q
 
     xc = x.reshape(bsz, nc, q, h, p)
-    dtc = dt.reshape(bsz, nc, q, h).float()
+    dtc = dt.reshape(bsz, nc, q, h).to(acc)
     bc = b_mat.reshape(bsz, nc, q, n)
     cc = c_mat.reshape(bsz, nc, q, n)
 
-    da = dtc * a.float()[None, None, None, :]            # [B, C, Q, H] (<0)
+    da = dtc * a.to(acc)[None, None, None, :]            # [B, C, Q, H] (<0)
     da_h = da.movedim(-1, -2)                            # [B, C, H, Q]
     decay_in = torch.exp(_segsum(da_h))                  # [B, C, H, Q, Q]
 
@@ -149,9 +151,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     # inter-chunk recurrence over chunk states
     chunk_decay = torch.exp(da_h.sum(dim=-1))            # [B, C, H]
-    st = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device) \
-        if initial_state is None else initial_state.float()
-    states = states.float()
+    st = torch.zeros((bsz, h, n, p), dtype=acc, device=x.device) \
+        if initial_state is None else initial_state.to(acc)
+    states = states.to(acc)
     prev = []
     for c in range(nc):
         prev.append(st)

@@ -12,7 +12,9 @@ decode cache and prefill; the ``mamba2`` group (Mamba2 blocks, whose
 prefill runs the SSD kernel) with its recurrent decode state. Not ported
 yet (ROADMAP.md, section 1): the ``shared_attention`` group (zamba2),
 MoE MLPs, and the ring caches of sliding-window layers; each raises
-``NotImplementedError``. Mesh sharding and remat are not ported.
+``NotImplementedError``. Remat is per-layer (or per-segment)
+``torch.utils.checkpoint``; mesh sharding of the activations is not
+ported (the train step runs at world size 1).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ArchConfig, BlockKind
 from repro_torch.common.device import DeviceLike, resolve_device
@@ -118,7 +121,7 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     a leading axis under ``blocks/attention`` and ``blocks/mamba2``."""
     dev = resolve_device(device)
     _check_ported(cfg)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = DTYPES[cfg.dtype]
     d, f = cfg.d_model, cfg.d_ff
@@ -244,11 +247,43 @@ def _mamba_layer_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
     return x + out, {"ssm": new_ssm, "conv": new_conv}
 
 
+def _requires_grad(tree: dict) -> bool:
+    return any(_requires_grad(v) if isinstance(v, dict) else v.requires_grad
+               for v in tree.values())
+
+
+def _train_segment(blocks: dict, seg: Segment, cfg: ArchConfig,
+                   x: torch.Tensor, positions: torch.Tensor, remat: bool,
+                   remat_segments: bool) -> torch.Tensor:
+    """A segment's layers on a training forward: each layer under
+    ``checkpoint`` with ``remat`` (its activations recomputed in the
+    backward), and the whole segment under one more with
+    ``remat_segments`` (one saved residual per segment)."""
+
+    def layer(j: int, xx: torch.Tensor) -> torch.Tensor:
+        p = {key: w[seg.start + j] for key, w in blocks.items()}
+        if seg.group == "mamba2":
+            return _mamba_layer_fwd(p, cfg, xx)[0]
+        return _attn_layer_fwd(p, cfg, xx, positions, seg.spec)[0]
+
+    def run(xx: torch.Tensor) -> torch.Tensor:
+        for j in range(seg.length):
+            xx = checkpoint(layer, j, xx, use_reentrant=False) if remat \
+                else layer(j, xx)
+        return xx
+
+    if remat_segments:
+        return checkpoint(run, x, use_reentrant=False)
+    return run(x)
+
+
 def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
             cache: Optional[dict] = None,
             decode_pos: Optional[torch.Tensor] = None,
+            remat: bool = True,
             build_cache: bool = False,
-            skip_head: bool = False
+            skip_head: bool = False,
+            remat_segments: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run the model.
 
@@ -262,16 +297,26 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
       (logits [B, 1, V], aux, cache), the cache updated in place.
     skip_head=True returns the final-norm hidden states [B, S, D] in
     place of the logits. aux is the MoE load-balancing loss, zero here.
+    A training forward (no cache, grad mode on and a parameter that
+    requires grad) recomputes each layer's activations in the backward
+    with ``remat`` and each segment's with ``remat_segments``, as the
+    reference's ``jax.checkpoint`` does; neither changes a number.
     """
     _check_ported(cfg)
     decode = cache is not None
     x = params["embedding"][inputs]
     positions = decode_pos[:, None] if decode else \
         torch.arange(x.shape[1], device=x.device)[None]
+    train = not decode and not build_cache and torch.is_grad_enabled() \
+        and _requires_grad(params)
 
     new_states: Dict[str, list] = {}
     for seg in build_plan(cfg)[0]:
         blocks = params["blocks"][seg.group]
+        if train:
+            x = _train_segment(blocks, seg, cfg, x, positions, remat,
+                               remat_segments)
+            continue
         for j in range(seg.length):
             p = {key: w[seg.start + j] for key, w in blocks.items()}
             state = None

@@ -23,6 +23,11 @@ in at least 99% of positions. The SPMD search on NCCL at world size 1
 returns its CPU twin's ids (over gloo) exactly, scores to rtol 1e-5 and
 atol 1e-4; ``kmeans_distributed`` there ends on ``kmeans``'s counts, and
 its centres to rtol 1e-5, atol 1e-6 (the same kernel calls, one rank).
+The SSD backward agrees with autograd through the plain scan on float64
+copies to 1e-4 of each output's largest |value| for float32 outputs and
+2^-8 for bf16 ones (their own rounding); the reduced train step on the
+card agrees with the CPU's to 1e-4 in loss and in each leaf's gradient
+(of its largest |g|).
 """
 import numpy as np
 import pytest
@@ -905,3 +910,152 @@ def test_kmeans_distributed_seeded_on_nccl_matches_kmeans(cuda, init):
     c_one, n_one = kmeans(x, 64, iters=4, seed=5, init=init, device=cuda)
     np.testing.assert_array_equal(n_dist, n_one)
     np.testing.assert_allclose(c_dist, c_one, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# training: the SSD scan's backward kernel and the train step on the card
+# ---------------------------------------------------------------------------
+
+# (B, S, H, P, N, chunk): ragged last chunks, one row short of a chunk,
+# mamba2-780m's layer shape at a corpus row
+SSD_BWD_SHAPES = [(2, 80, 3, 16, 16, 32), (1, 40, 2, 5, 7, 16),
+                  (2, 7, 2, 3, 4, 32), (2, 300, 4, 64, 128, 64),
+                  (1, 513, 48, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("final", (False, True), ids=("y", "y_final"))
+@pytest.mark.parametrize("initial", (False, True), ids=("zero", "init"))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES, ids=str)
+def test_ssd_backward_kernel_matches_float64(cuda, shape, dtype, initial,
+                                             final):
+    """The backward kernel against autograd through the plain scan on
+    float64 copies of the same inputs: within 1e-4 of each output's
+    largest |value| for its float32 outputs (ddt, da, d_initial_state;
+    and dx, dB, dC on float32 inputs), 2^-8 for bf16 outputs (their own
+    rounding); a second call is equal bit for bit (no atomics)."""
+    from repro_torch.kernels.ssd import ssd_backward_cuda, ssd_backward_ref
+    x, dt, a, bm, cm, init = _ssd_inputs(shape, dtype, cuda, initial)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn(x.shape, device=cuda, generator=g)
+    dfin = torch.randn(init.shape if initial else
+                       (shape[0], shape[2], shape[4], shape[3]),
+                       device=cuda, generator=g) if final else None
+    before = ssd_backward_cuda.launches
+    out = ssd_backward_cuda(x, dt, a, bm, cm, dy, chunk=shape[-1],
+                            initial_state=init, d_final=dfin)
+    torch.cuda.synchronize()
+    assert ssd_backward_cuda.launches == before + 1
+
+    def d(t):
+        return None if t is None else t.double()
+    truth = ssd_backward_ref(x.double(), dt.double(), a.double(),
+                             bm.double(), cm.double(), dy.double(),
+                             chunk=shape[-1], initial_state=d(init),
+                             d_final=d(dfin))
+    dtypes = (dtype, torch.float32, torch.float32, dtype, dtype,
+              torch.float32)
+    for name, got, want, dt_ in zip(("dx", "ddt", "da", "db", "dc",
+                                     "dinit"), out, truth, dtypes):
+        assert got.dtype == dt_ and got.shape == want.shape, name
+        assert torch.isfinite(got).all(), name
+        tol = 2.0 ** -8 if got.dtype == torch.bfloat16 else 1e-4
+        err = float((got.double() - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (name, err)
+    again = ssd_backward_cuda(x, dt, a, bm, cm, dy, chunk=shape[-1],
+                              initial_state=init, d_final=dfin)
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+
+def test_ssd_scan_carries_the_gradient_on_card(cuda):
+    """``ssd_scan`` with inputs that require grad runs through the
+    backward kernel, and its gradients are autograd's through the plain
+    scan; ``ssd_cuda`` refuses such inputs."""
+    from repro_torch.kernels.ssd import ssd_backward_cuda, ssd_scan
+    shape = (2, 80, 3, 16, 16, 32)
+    x, dt, a, bm, cm, init = _ssd_inputs(shape, torch.float32, cuda, True)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm, init)]
+    with pytest.raises(RuntimeError, match="ssd_scan"):
+        ssd_cuda(*ins[:5], chunk=32, initial_state=ins[5])
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dy = torch.randn(x.shape, device=cuda, generator=g)
+    dfin = torch.randn(init.shape, device=cuda, generator=g)
+    before = (ssd_cuda.launches, ssd_backward_cuda.launches)
+    y, final = ssd_scan(*ins[:5], chunk=32, initial_state=ins[5])
+    grads = torch.autograd.grad((y * dy).sum() + (final * dfin).sum(), ins)
+    assert (ssd_cuda.launches, ssd_backward_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    refs = [t.detach().double().requires_grad_(True) for t in ins]
+    y_r, f_r = ssd_ref(*refs[:5], chunk=32, initial_state=refs[5])
+    want = torch.autograd.grad((y_r * dy.double()).sum()
+                               + (f_r * dfin.double()).sum(), refs)
+    for got, w in zip(grads, want):
+        err = float((got.double() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+
+
+def _loss_grads(params, cfg, b, dev):
+    from repro_torch.train import tree as TT
+    from repro_torch.train.train_step import loss_fn
+    flat = TT.items(params)
+    leaves = [p.detach().requires_grad_(True) for _, p in flat]
+    live = TT.unflatten({k: v for (k, _), v in zip(flat, leaves)})
+    batch = {"inputs": torch.from_numpy(b.inputs).to(dev),
+             "targets": torch.from_numpy(b.targets).to(dev),
+             "mask": torch.from_numpy(b.mask).to(dev)}
+    total, (loss, _) = loss_fn(live, cfg, batch)
+    grads = torch.autograd.grad(total, leaves)
+    return float(loss.detach()), {k: g for (k, _), g in zip(flat, grads)}
+
+
+@pytest.mark.parametrize("arch", ("qwen3-1.7b", "mamba2-780m"))
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """The reduced config's train step on the card (the SSD kernels for
+    mamba2, no kernel of the port for qwen3) against the CPU's (plain
+    versions) from the same parameters and batches: the first step's
+    gradients within 1e-4 of each leaf's largest |g|, every leaf's
+    gradient non-zero on the card, and three steps' losses within 1e-4;
+    under remat a Mamba2 layer runs the forward scan twice a step and its
+    backward once."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.ssd import ssd_backward_cuda
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import tree as TT
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import train_step
+    cfg = get_arch(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = TT.map_tree(lambda t: t.to(cuda), cpu)
+    data = iter(SyntheticLM(cfg, batch=8, seq_len=80, seed=0))
+    batches = [next(data) for _ in range(3)]
+    loss_c, g_cpu = _loss_grads(cpu, cfg, batches[0], "cpu")
+    loss_g, g_card = _loss_grads(card, cfg, batches[0], cuda)
+    assert abs(loss_c - loss_g) <= 1e-4
+    for key, g in g_card.items():
+        assert float(g.abs().max()) > 0, key
+        err = float((g.cpu() - g_cpu[key]).abs().max())
+        assert err <= 1e-4 * float(g_cpu[key].abs().max()), (key, err)
+    opt = AdamWConfig(lr=5e-3, warmup_steps=5, total_steps=120,
+                      weight_decay=0.0)
+    runs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        state = init_opt_state(params)
+        reset_launch_counts()
+        losses = []
+        for b in batches:
+            batch = {"inputs": torch.from_numpy(b.inputs).to(dev),
+                     "targets": torch.from_numpy(b.targets).to(dev),
+                     "mask": torch.from_numpy(b.mask).to(dev)}
+            params, state, m = train_step(params, state, batch, cfg=cfg,
+                                          opt_cfg=opt)
+            losses.append(float(m["loss"]))
+        runs.append(losses)
+    np.testing.assert_allclose(runs[1], runs[0], rtol=0, atol=1e-4)
+    counts = launch_counts()
+    mamba = cfg.num_layers if arch == "mamba2-780m" else 0
+    assert counts["ssd"] == 2 * mamba * 3, counts
+    assert counts["ssd_backward"] == ssd_backward_cuda.launches \
+        == mamba * 3, counts
+    assert sum(counts.values()) == 3 * mamba * 3, counts

@@ -18,7 +18,7 @@ from repro_torch.core import distributed as TD
 from repro_torch.core.hnsw import build_hnsw
 from repro_torch.core.meta_index import PyramidIndex, build_pyramid_index
 from repro_torch.core.api import Brokers, GraphConstructor
-from repro_torch.launch import maintain, serve
+from repro_torch.launch import maintain, serve, train
 from repro_torch.launch.build_index import load_index
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.batcher import ContinuousBatcher
@@ -51,6 +51,11 @@ def test_every_module_imports_without_jax_or_reference():
     assert {"repro_torch.data.vectors", "repro_torch.launch.mesh",
             "repro_torch.common.sharding", "repro_torch.core.kmeans",
             "repro_torch.core.distributed"} <= set(MODULES)
+    assert {"repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+            "repro_torch.train.tree", "repro_torch.launch.train",
+            "repro_torch.kernels.ssd", "repro_torch.kernels.ssd.ops",
+            "repro_torch.kernels.ssd.ref"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -98,6 +103,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
         build_datastore(params, lm, [toks], cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--tokens", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
     IndexStore(str(tmp_path)).publish(index)   # host work only
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IndexStore(str(tmp_path)).load()

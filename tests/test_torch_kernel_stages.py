@@ -3,7 +3,12 @@ in plain PyTorch or numpy and held against the JAX package on the CPU.
 
 ``ssd_staged_ref`` runs the five stages of ``csrc/ssd.cu`` (prefix sums,
 C B^T once per chunk, chunk states [N, P], state passing, outputs
-as exp(cum_i) C_i S_prev plus the masked score product), and
+as exp(cum_i) C_i S_prev plus the masked score product);
+``ssd_backward_staged_ref`` the stages of ``csrc/ssd_backward.cu``
+(float64 prefix sums, C B^T, each chunk's state and state-gradient
+terms, the forward and reverse recurrences, the per-head dx and decay
+gradient with its reverse prefix sum, G summed over heads, then dB and
+dC), in float64; and
 ``topk_similarity_split_ref`` the walk of ``csrc/topk_distance.cu``: the
 database cut into splits of 128-row tiles by ``split_plan``, a running
 top-k per query that admits only scores above its k-th (a running argmax
@@ -22,13 +27,16 @@ test-only mirrors of the kernels' algorithms, not used by the port.
 
 Tolerances: the SSD stages agree with the reference to rtol = atol =
 1e-5 (float32 sums in another order; decays as differences of prefix
-sums); the top-k ids are equal and the scores agree to rtol = atol =
+sums); the backward stages agree with float64 autograd through the
+port's ``ssd_chunked`` to 1e-10 of each gradient's largest |value| and
+with ``jax.vjp`` of the reference's float32 scan to 1e-4 of it; the top-k ids are equal and the scores agree to rtol = atol =
 1e-5 (l2 to atol 1e-4, for the cancellation in 2 q.x - |q|^2 - |x|^2).
 The staged walk's ids equal the reference's (normal rows do not tie;
 integer rows tie exactly, and are held against the numpy twin, which
 breaks ties as the kernel does, -0.0 == +0.0), its scores to the same
 tolerances.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,6 +208,112 @@ def test_ssd_stages_match_reference(s, initial):
                                atol=1e-5)
     np.testing.assert_allclose(st.numpy(), np.asarray(st_r), rtol=1e-5,
                                atol=1e-5)
+
+
+def ssd_backward_staged_ref(x, dt, a, bm, cm, dy, *, chunk,
+                            initial_state=None, d_final=None):
+    """The gradients of the SSD scan as ``csrc/ssd_backward.cu`` computes
+    them, stage by stage, in float64 (rows past S as dt = 0, their
+    gradients dropped). Returns (dx, ddt, da, dB, dC, d_initial_state)."""
+    f = torch.float64
+    bsz, s, h, p = x.shape
+    n = bm.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+
+    def rows(t):                       # [B, S, ...] -> [B, nc, Q, ...]
+        t = F.pad(t.to(f), (0, 0) * (t.dim() - 2) + (0, nc * q - s))
+        return t.reshape((bsz, nc, q) + t.shape[2:])
+    xc, dtc, bc, cc, dyc = map(rows, (x, dt, bm, cm, dy))
+    # 1. prefix sums; 2. C B^T
+    cum = torch.cumsum(dtc * a.to(f), dim=2)                # [B, nc, Q, H]
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    low = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    cend = cum[:, :, -1]                                    # [B, nc, H]
+    dend = torch.exp(cend[:, :, None] - cum)
+    w, e = dtc * dend, torch.exp(cum)
+    # 3. per-chunk state terms and state-gradient terms
+    st = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, w, xc)
+    sb = torch.einsum("bcin,bcih,bcihp->bchnp", cc, e, dyc)
+    # 4. the forward recurrence (chunk-entry states), then the reverse
+    g = torch.exp(cend)[..., None, None]
+    s_in, s_bar = torch.empty_like(st), torch.empty_like(sb)
+    run = torch.zeros(bsz, h, n, p, dtype=f) if initial_state is None \
+        else initial_state.to(f)
+    for c in range(nc):
+        s_in[:, c], run = run, run * g[:, c] + st[:, c]
+    run = torch.zeros(bsz, h, n, p, dtype=f) if d_final is None \
+        else d_final.to(f)
+    for c in reversed(range(nc)):
+        s_bar[:, c], run = run, run * g[:, c] + sb[:, c]
+    d_init = run
+    # 5. per head: dx, the decay gradient, ddt and da
+    ch = cum.movedim(-1, 2)                                 # [B, nc, H, Q]
+    lmat = torch.where(low, torch.exp(ch[..., :, None] - ch[..., None, :]),
+                       torch.zeros((), dtype=f))           # [B, nc, H, i, j]
+    bs = torch.einsum("bcjn,bchnp->bcjhp", bc, s_bar)
+    u = (bs * xc).sum(-1)                                   # [B, nc, Q, H]
+    wl = cb[:, :, None] * lmat
+    dx = w[..., None] * bs + dtc[..., None] * torch.einsum(
+        "bchij,bcihp->bcjhp", wl, dyc)
+    sbar_ij = torch.einsum("bcihp,bcjhp->bchij", dyc, xc) * low
+    t = sbar_ij * wl
+    m = t * dtc.movedim(-1, 2)[..., None, :]
+    dcum = (m.sum(-1) - m.sum(-2)).movedim(2, -1)
+    dcum = dcum + e * (torch.einsum("bcin,bchnp->bcihp", cc, s_in)
+                       * dyc).sum(-1) - w * u
+    ddt = t.sum(-2).movedim(2, -1) + dend * u
+    dcum[:, :, -1] += (w * u).sum(2) + torch.exp(cend) * (
+        s_bar * s_in).sum((-1, -2))
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = ddt + a.to(f) * dda
+    da = (dda * dtc).sum((0, 1, 2))
+    # 6. G, summed over heads; 7. dB and dC
+    gm = (sbar_ij * lmat * dtc.movedim(-1, 2)[..., None, :]).sum(2)
+    db = torch.einsum("bcjh,bcjhp,bchnp->bcjn", w, xc, s_bar) + \
+        torch.einsum("bcij,bcin->bcjn", gm, cc)
+    dc = torch.einsum("bcih,bcihp,bchnp->bcin", e, dyc, s_in) + \
+        torch.einsum("bcij,bcjn->bcin", gm, bc)
+
+    def cut(v):
+        return v.reshape((bsz, nc * q) + v.shape[3:])[:, :s]
+    return cut(dx), cut(ddt), da, cut(db), cut(dc), d_init
+
+
+@pytest.mark.parametrize("final", (False, True), ids=("y", "y_final"))
+@pytest.mark.parametrize("initial", (False, True), ids=("zero", "init"))
+@pytest.mark.parametrize("s", (1, SSD_Q + 1, 3 * SSD_Q + 5))
+def test_ssd_backward_stages_match_autograd(s, initial, final):
+    """The backward kernel's stages against autograd: float64 through the
+    port's ``ssd_chunked`` (``ssd_backward_ref``), and ``jax.vjp`` of the
+    reference's float32 scan."""
+    from repro_torch.kernels.ssd import ssd_backward_ref
+    case, init = _ssd_case(s, seed=s + 100 * initial + 7, initial=initial)
+    rng = np.random.default_rng(s)
+    b, _, h, p = case[0].shape
+    n = case[3].shape[-1]
+    dy = rng.normal(size=case[0].shape).astype(np.float32)
+    dfin = rng.normal(size=(b, h, n, p)).astype(np.float32) if final \
+        else None
+    t64 = [torch.as_tensor(v).double() for v in case]
+    opt = dict(chunk=SSD_Q,
+               initial_state=None if init is None
+               else torch.as_tensor(init).double(),
+               d_final=None if dfin is None else torch.as_tensor(dfin))
+    staged = ssd_backward_staged_ref(*t64, torch.as_tensor(dy), **opt)
+    truth = ssd_backward_ref(*t64, torch.as_tensor(dy).double(), **opt)
+    init_j = jnp.zeros((b, h, n, p)) if init is None else jnp.asarray(init)
+    _, vjp = jax.vjp(lambda *v: ref_ssd(*v[:5], chunk=SSD_Q,
+                                        initial_state=v[5]),
+                     *(jnp.asarray(v) for v in case), init_j)
+    ref = vjp((jnp.asarray(dy), jnp.zeros((b, h, n, p)) if dfin is None
+               else jnp.asarray(dfin)))
+    for name, got, want, r in zip(("dx", "ddt", "da", "db", "dc", "dinit"),
+                                  staged, truth, ref):
+        scale = float(want.abs().max()) or 1.0
+        assert float((got - want).abs().max()) <= 1e-10 * scale, name
+        assert float((got - torch.as_tensor(np.asarray(r)).double())
+                     .abs().max()) <= 1e-4 * scale, name
 
 
 # ---------------------------------------------------------------------------
