@@ -14,24 +14,37 @@ stream.
 
 Gradients: ``ssd_cuda``'s outputs carry none, so on the card ``ssd_scan``
 runs the scan through :class:`SSDScan`, a ``torch.autograd.Function``
-whose backward is ``ssd_backward_cuda`` (``csrc/ssd_backward.cu``, eight
-CUDA kernels, one launch counted), whenever grad mode is on and an input
-requires grad. ``ssd_cuda`` itself refuses such inputs, so that no call
-cuts the gradient silently.
+whose backward is ``ssd_backward_cuda`` (``csrc/ssd_backward.cu``,
+eleven CUDA kernels with their products on the tensor cores, one launch
+counted, their grid from :func:`backward_plan`), whenever grad mode is
+on and an input requires grad. ``ssd_cuda`` itself refuses such inputs,
+so that no call cuts the gradient silently.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.common.device import sm_count
 from repro_torch.kernels.ssd.ref import ssd_ref
 
 MAX_P = 64        # head dim P
 MAX_N = 128       # state dim N
 MAX_CHUNK = 256   # chunk length Q
+BWD_TILE = 64     # rows and columns of the backward's tiles
+
+# ``ssd_backward_cuda`` against autograd through the plain scan on float64
+# copies of the same inputs (the truth), as a share of each output's
+# largest |value|: float32 outputs (ddt, da, d_initial_state, and dx, dB,
+# dC on float32 inputs) within 1e-4, the kernel's sums being float32 in
+# another order over float64 prefix sums; bf16 outputs (dx, dB, dC on
+# bf16 inputs) within 2^-8, their own rounding to bf16 of values up to
+# the largest.
+SSD_BWD_TOL = 1e-4
+SSD_BWD_TOL_BF16 = 2.0 ** -8
 
 _lib = None
 _blib = None
@@ -59,10 +72,12 @@ def _backward_library():
         lib = cuda_lib.load("ssd_backward")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ssd_backward_launch.argtypes = [p] * 15 + [i] * 6 + [ll] * 4 \
-            + [i, p]
+            + [i] * 3 + [p]
         lib.ssd_backward_launch.restype = i
-        lib.ssd_backward_scratch_bytes.argtypes = [i, i, i, i, i, i]
+        lib.ssd_backward_scratch_bytes.argtypes = [i] * 8
         lib.ssd_backward_scratch_bytes.restype = ll
+        lib.ssd_backward_smem_bytes.argtypes = [i, i]
+        lib.ssd_backward_smem_bytes.restype = ll
         _blib = lib
     return _blib
 
@@ -168,6 +183,65 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 ssd_cuda.launches = 0
 
 
+class BackwardPlan(NamedTuple):
+    """The grid of ``csrc/ssd_backward.cu`` for one call's shapes."""
+    hpg: int                # heads a group of the s stage (G summed over them)
+    hpp: int                # heads a part of the dB/dC stage
+    ctas: Dict[str, int]    # blocks with work, of each stage that multiplies
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def backward_plan(b: int, s: int, h: int, p: int, n: int, q: int,
+                  sms: int) -> BackwardPlan:
+    """The backward's grid at B = ``b``, S = ``s``, H = ``h``, P, N and
+    chunk rows ``q`` (``min(chunk, S)``) on a card of ``sms`` SMs. Two
+    stages walk heads inside a block: the s stage (a block a causal 64 x 64
+    tile pair, b and chunk, and a group of ``hpg`` heads, whose part of G
+    it leaves in scratch) and the dB/dC stage (a block a 64-row tile, dB
+    or dC, b and chunk, and a part of ``hpp`` heads, plus one part for the
+    G term). Both hold two blocks a SM, so a stage takes about
+    ceil(blocks / (2 SMs)) x heads a block: each takes the heads a block
+    that make that least (ties to more heads a block), with at most eight
+    groups or parts, and the dB/dC stage at most four waves of blocks
+    unless it has one part, since each part is a [B, S, N] pair of
+    partials to write and read. The head stage (a block a (b, chunk,
+    head)) splits a chunk's 16-row tiles over ceil(Q / 128) blocks of
+    four warps, a pair of tiles a warp, as the kernel works out from Q.
+    The dynamic shared memory of each stage is the library's
+    (``ssd_backward_smem_bytes``) and does not depend on the plan."""
+    nc = _cdiv(s, q)
+    rows = [min(q, s - c * q) for c in range(nc)]
+    tiles = [_cdiv(r, BWD_TILE) for r in rows]
+    slots = 2 * sms
+    tile_pairs = b * sum(t * (t + 1) // 2 for t in tiles)
+    options = []
+    for hpg in sorted({min(v, h) for v in (16, 12, 8, 6, 4, 3, 2, 1)},
+                      reverse=True):
+        ng = _cdiv(h, hpg)
+        if ng <= 8:
+            options.append((_cdiv(tile_pairs * ng, slots) * hpg, -hpg))
+    hpg = -min(options)[1]
+    row_jobs = 2 * b * sum(tiles)
+    options = []
+    for parts in range(1, min(h, 8) + 1):
+        hpp = _cdiv(h, parts)
+        ctas = row_jobs * (_cdiv(h, hpp) + 1)
+        if parts == 1 or ctas <= max(4 * slots, 2 * row_jobs):
+            options.append((_cdiv(ctas, slots) * hpp, _cdiv(h, hpp), hpp))
+    hpp = min(options)[2]
+    hsplit = _cdiv(q, 128)
+    ctas = {"outer": 2 * b * nc * h,
+            "sg": tile_pairs * _cdiv(h, hpg),
+            "head": b * h * sum(min(hsplit, _cdiv(_cdiv(r, 16), 2))
+                                for r in rows),
+            "bc": row_jobs * (_cdiv(h, hpp) + 1)}
+    return BackwardPlan(hpg, hpp, ctas)
+
+
 def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       b_mat: torch.Tensor, c_mat: torch.Tensor,
                       dy: torch.Tensor, *, chunk: int,
@@ -182,7 +256,8 @@ def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     d_initial_state [B, H, N, P] in float32 (the gradient with respect to
     a zero initial state when there is none). What autograd through the
     plain ``ssd_chunked`` gives (:func:`ssd_backward_ref`); float64 prefix
-    sums, float32 products, no atomics."""
+    sums, products on the tensor cores in split pieces, float32 sums, no
+    atomics; the grid from :func:`backward_plan`."""
     _refuse_grad("ssd_backward_cuda", x, dt, a, b_mat, c_mat, dy,
                  initial_state, d_final)
     _check_inputs("ssd_backward_cuda", x, dt, a, b_mat, c_mat,
@@ -206,8 +281,10 @@ def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dc = torch.empty((bsz, s, n), dtype=x.dtype, device=dev)
     dinit = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev)
     lib = _backward_library()
-    scratch = torch.empty(lib.ssd_backward_scratch_bytes(bsz, s, h, p, n, q),
-                          dtype=torch.uint8, device=dev)
+    plan = backward_plan(bsz, s, h, p, n, q, sm_count(dev))
+    scratch = torch.empty(lib.ssd_backward_scratch_bytes(
+        bsz, s, h, p, n, q, plan.hpg, plan.hpp), dtype=torch.uint8,
+        device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -216,7 +293,7 @@ def ssd_backward_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         ptr(dy), ptr(d_final), ptr(dx), ptr(ddt), ptr(da), ptr(db), ptr(dc),
         ptr(dinit), ptr(scratch), bsz, s, h, p, n, q, b_mat.stride(0),
         b_mat.stride(1), c_mat.stride(0), c_mat.stride(1),
-        int(x.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), plan.hpg, plan.hpp,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd backward kernel launch failed: CUDA error "
@@ -232,7 +309,8 @@ class SSDScan(torch.autograd.Function):
     """The SSD scan on the card with its gradient: the forward is
     ``ssd_cuda`` (y float32, final_state float32), the backward
     ``ssd_backward_cuda``. Saves the inputs only; the backward recomputes
-    the chunk states it needs."""
+    the chunk states it needs (the forward's are float32 decays; see
+    ``csrc/ssd_backward.cu``)."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b_mat, c_mat, initial_state, chunk: int):

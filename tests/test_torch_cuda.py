@@ -917,10 +917,12 @@ def test_kmeans_distributed_seeded_on_nccl_matches_kmeans(cuda, init):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, P, N, chunk): ragged last chunks, one row short of a chunk,
-# mamba2-780m's layer shape at a corpus row
+# mamba2-780m's layer shape at a corpus row, at the train step's batch
+# (phase 11a), and with a last chunk of one row
 SSD_BWD_SHAPES = [(2, 80, 3, 16, 16, 32), (1, 40, 2, 5, 7, 16),
                   (2, 7, 2, 3, 4, 32), (2, 300, 4, 64, 128, 64),
-                  (1, 513, 48, 64, 128, 256)]
+                  (1, 513, 48, 64, 128, 256), (4, 640, 48, 64, 128, 256),
+                  (1, 257, 4, 64, 128, 256)]
 
 
 @pytest.mark.parametrize("final", (False, True), ids=("y", "y_final"))
@@ -935,7 +937,8 @@ def test_ssd_backward_kernel_matches_float64(cuda, shape, dtype, initial,
     largest |value| for its float32 outputs (ddt, da, d_initial_state;
     and dx, dB, dC on float32 inputs), 2^-8 for bf16 outputs (their own
     rounding); a second call is equal bit for bit (no atomics)."""
-    from repro_torch.kernels.ssd import ssd_backward_cuda, ssd_backward_ref
+    from repro_torch.kernels.ssd import (SSD_BWD_TOL, SSD_BWD_TOL_BF16,
+                                         ssd_backward_cuda, ssd_backward_ref)
     x, dt, a, bm, cm, init = _ssd_inputs(shape, dtype, cuda, initial)
     g = torch.Generator(device=cuda).manual_seed(7)
     dy = torch.randn(x.shape, device=cuda, generator=g)
@@ -960,12 +963,31 @@ def test_ssd_backward_kernel_matches_float64(cuda, shape, dtype, initial,
                                      "dinit"), out, truth, dtypes):
         assert got.dtype == dt_ and got.shape == want.shape, name
         assert torch.isfinite(got).all(), name
-        tol = 2.0 ** -8 if got.dtype == torch.bfloat16 else 1e-4
+        tol = SSD_BWD_TOL_BF16 if got.dtype == torch.bfloat16 \
+            else SSD_BWD_TOL
         err = float((got.double() - want).abs().max())
         assert err <= tol * float(want.abs().max()), (name, err)
     again = ssd_backward_cuda(x, dt, a, bm, cm, dy, chunk=shape[-1],
                               initial_state=init, d_final=dfin)
     assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+
+def test_ssd_backward_smem_fits_the_card(cuda):
+    """The dynamic shared memory of the backward's staged kernels as the
+    library reports it (``ssd_backward_smem_bytes``, the sizes it passes
+    to ``cudaFuncSetAttribute``), on the float32 and the bf16 path: each
+    fits a block's 227 KB, and the blocks a SM that each kernel's launch
+    bounds ask for (two of the outer, s and dB/dC stages, which
+    ``backward_plan`` counts on, three of the head stage) fit the SM's
+    228 KB with the 1 KB the card keeps a block."""
+    from repro_torch.kernels.ssd.ops import _backward_library
+    lib = _backward_library()
+    for bf16 in (0, 1):
+        for stage, blocks in enumerate((2, 2, 3, 2)):
+            smem = lib.ssd_backward_smem_bytes(stage, bf16)
+            assert 0 < smem <= 227 * 1024, (stage, bf16, smem)
+            assert blocks * (smem + 1024) <= 228 * 1024, (stage, bf16, smem)
+        assert lib.ssd_backward_smem_bytes(4, bf16) == -1
 
 
 def test_ssd_scan_carries_the_gradient_on_card(cuda):

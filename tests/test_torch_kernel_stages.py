@@ -5,10 +5,12 @@ in plain PyTorch or numpy and held against the JAX package on the CPU.
 C B^T once per chunk, chunk states [N, P], state passing, outputs
 as exp(cum_i) C_i S_prev plus the masked score product);
 ``ssd_backward_staged_ref`` the stages of ``csrc/ssd_backward.cu``
-(float64 prefix sums, C B^T, each chunk's state and state-gradient
-terms, the forward and reverse recurrences, the per-head dx and decay
-gradient with its reverse prefix sum, G summed over heads, then dB and
-dC), in float64; and
+(float64 prefix sums, each chunk's state and state-gradient terms, the
+forward and reverse recurrences, C B^T and s = dy x^T once a causal tile
+pair with the tile pairs' sums of the decay gradient and G summed over
+groups of heads, the per-head dx, the decay gradient's reverse prefix
+sum, then dB and dC over parts of heads), in float64 or in the kernel's
+split pieces; ``backward_plan``'s grid; and
 ``topk_similarity_split_ref`` the walk of ``csrc/topk_distance.cu``: the
 database cut into splits of 128-row tiles by ``split_plan``, a running
 top-k per query that admits only scores above its k-th (a running argmax
@@ -29,7 +31,9 @@ Tolerances: the SSD stages agree with the reference to rtol = atol =
 1e-5 (float32 sums in another order; decays as differences of prefix
 sums); the backward stages agree with float64 autograd through the
 port's ``ssd_chunked`` to 1e-10 of each gradient's largest |value| and
-with ``jax.vjp`` of the reference's float32 scan to 1e-4 of it; the top-k ids are equal and the scores agree to rtol = atol =
+with ``jax.vjp`` of the reference's float32 scan to 1e-4 of it, and in
+the kernel's split pieces to ``SSD_BWD_TOL``, 1e-4 (``SSD_BWD_TOL_BF16``,
+2^-8, for bf16 outputs), the bounds ``chip_smoke.py`` holds the card to; the top-k ids are equal and the scores agree to rtol = atol =
 1e-5 (l2 to atol 1e-4, for the cancellation in 2 q.x - |q|^2 - |x|^2).
 The staged walk's ids equal the reference's (normal rows do not tie;
 integer rows tie exactly, and are held against the numpy twin, which
@@ -52,6 +56,8 @@ from repro_torch.kernels.beam_search import beam_search
 from repro_torch.kernels.beam_search.ops import (MAX_M0, SMEM_MAX_BYTES,
                                                  WalkPlan, layout_bytes,
                                                  resident_blocks, walk_plan)
+from repro_torch.kernels.ssd import SSD_BWD_TOL, SSD_BWD_TOL_BF16
+from repro_torch.kernels.ssd.ops import BWD_TILE, backward_plan
 from repro_torch.kernels.topk_distance.ops import (TILE, slice_plan,
                                                    split_plan)
 from repro_torch.kernels.topk_distance.ref import similarities
@@ -210,73 +216,219 @@ def test_ssd_stages_match_reference(s, initial):
                                atol=1e-5)
 
 
+def _pieces(v, f16):
+    """The hi and lo pieces (fp16 or bf16) of float32 values, as float64:
+    hi = round(v), lo = round(v - hi)."""
+    t = torch.float16 if f16 else torch.bfloat16
+    v = v.float()
+    hi = v.to(t)
+    return hi.double(), (v - hi.float()).to(t).double()
+
+
 def ssd_backward_staged_ref(x, dt, a, bm, cm, dy, *, chunk,
-                            initial_state=None, d_final=None):
+                            initial_state=None, d_final=None, tile=BWD_TILE,
+                            hpg=1, hpp=1, pieces=None):
     """The gradients of the SSD scan as ``csrc/ssd_backward.cu`` computes
-    them, stage by stage, in float64 (rows past S as dt = 0, their
-    gradients dropped). Returns (dx, ddt, da, dB, dC, d_initial_state)."""
+    them, stage by stage: on the float32 path sigma, the power of two that
+    brings max |dy|, |d_final| into [1/2, 1), scales the cotangents; C B^T and s = dy x^T
+    once per causal tile pair (``tile`` rows), the row and column sums of
+    M and of s (C.B) L a tile pair, G summed over groups of ``hpg`` heads;
+    per head dx = w (B Sb) + (dt (C B^T o L))^T dy and the rows' parts of
+    the decay gradient; the tile pairs' sums added in order in float64,
+    the reverse prefix sum; dB and dC in parts of ``hpp`` heads and a part
+    for G (summed over the groups in order), the parts added in order.
+    Rows past S act as dt = 0 and their gradients are dropped.
+
+    ``pieces`` None: everything in float64. "bf16" or "fp16": the kernel's
+    numbers, each product's operands rounded to hi + lo pieces (bf16
+    inputs of the "bf16" path as they are), the three pass products
+    (lo x lo dropped) taken exactly and summed in float32, G times the
+    power of two that brings its largest |value| into [2^13, 2^14), dx
+    as dt (exp(cum_end - cum) B Sb + (C B^T o L)^T dy),
+    the elementwise work in float32 (L below the diagonal tile as the
+    product exp(cum_i - ref) exp(ref - cum_j), ref the cum of the j tile's
+    last row) and the decay gradient's sums (the tile pairs' row and
+    column sums too) in float64. Returns (dx, ddt, da, dB, dC, d_initial_state)."""
     f = torch.float64
+    wt = f if pieces is None else torch.float32      # the working type
+    f16, exact_in = pieces == "fp16", pieces == "bf16"
     bsz, s, h, p = x.shape
     n = bm.shape[-1]
     q = min(chunk, s)
     nc = -(-s // q)
+    qt = -(-q // tile) * tile
+    heads = range(h)
 
-    def rows(t):                       # [B, S, ...] -> [B, nc, Q, ...]
-        t = F.pad(t.to(f), (0, 0) * (t.dim() - 2) + (0, nc * q - s))
-        return t.reshape((bsz, nc, q) + t.shape[2:])
-    xc, dtc, bc, cc, dyc = map(rows, (x, dt, bm, cm, dy))
-    # 1. prefix sums; 2. C B^T
-    cum = torch.cumsum(dtc * a.to(f), dim=2)                # [B, nc, Q, H]
-    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
-    low = torch.tril(torch.ones(q, q, dtype=torch.bool))
-    cend = cum[:, :, -1]                                    # [B, nc, H]
-    dend = torch.exp(cend[:, :, None] - cum)
-    w, e = dtc * dend, torch.exp(cum)
-    # 3. per-chunk state terms and state-gradient terms
-    st = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, w, xc)
-    sb = torch.einsum("bcin,bcih,bcihp->bchnp", cc, e, dyc)
-    # 4. the forward recurrence (chunk-entry states), then the reverse
-    g = torch.exp(cend)[..., None, None]
-    s_in, s_bar = torch.empty_like(st), torch.empty_like(sb)
-    run = torch.zeros(bsz, h, n, p, dtype=f) if initial_state is None \
-        else initial_state.to(f)
+    def mm(u, v, u_in=False, v_in=False):
+        """u @ v, as the tensor cores take it (u_in, v_in: the operand is
+        an input, exact on the bf16 path)."""
+        if pieces is None:
+            return u.to(f) @ v.to(f)
+        uh, ul = (u.double(), None) if u_in and exact_in else \
+            _pieces(u, f16)
+        vh, vl = (v.double(), None) if v_in and exact_in else \
+            _pieces(v, f16)
+        out = (uh @ vh).float()
+        if ul is not None:
+            out = out + (ul @ vh).float()
+        if vl is not None:
+            out = out + (uh @ vl).float()
+        return out
+
+    def chunked(t, c):                   # [B, S, ...] -> [B, qt, ...]
+        part = t[:, c * q:min(s, (c + 1) * q)]
+        return F.pad(part, (0, 0) * (t.dim() - 2)
+                     + (0, qt - part.shape[1]))
+    amax = dy.abs().max()
+    if d_final is not None:
+        amax = torch.maximum(amax, d_final.abs().max())
+    e2 = int(torch.frexp(amax.float())[1]) \
+        if f16 and 0 < float(amax) < np.inf else 0
+    sig, inv = 2.0 ** -e2, 2.0 ** e2
+    xs = [chunked(x, c).to(wt) for c in range(nc)]        # [B, qt, H, P]
+    ys = [chunked(dy, c).to(wt) * sig for c in range(nc)]
+    bs_ = [chunked(bm, c).to(wt) for c in range(nc)]      # [B, qt, N]
+    cs_ = [chunked(cm, c).to(wt) for c in range(nc)]
+    dts = [chunked(dt, c).to(wt) for c in range(nc)]      # [B, qt, H]
+    rows = [min(q, s - c * q) for c in range(nc)]
+    # 1. prefix sums in float64; the rows' weights in the working type
+    cums = [torch.cumsum(d.to(f) * a.to(f), dim=1) for d in dts]
+    cend = [cu[:, q - 1] for cu in cums]                   # [B, H]
+    dend = [torch.exp((ce[:, None] - cu).to(wt)) for ce, cu in
+            zip(cend, cums)]
+    ws = [d * de for d, de in zip(dts, dend)]
+    es = [torch.exp(cu.to(wt)) for cu in cums]
+    # 3. each chunk's state term and gradient term, [B, H, N, P]
+    st = [torch.stack([mm(bs_[c].transpose(1, 2),
+                          ws[c][:, :, k, None] * xs[c][:, :, k], True)
+                       for k in heads], 1) for c in range(nc)]
+    sb = [torch.stack([mm(cs_[c].transpose(1, 2),
+                          ys[c][:, :, k] * es[c][:, :, k, None], True)
+                       for k in heads], 1) for c in range(nc)]
+    # 4. the forward and the reverse recurrences
+    s_in, s_bar = [None] * nc, [None] * nc
+    run = torch.zeros(bsz, h, n, p, dtype=wt) if initial_state is None \
+        else initial_state.to(wt)
     for c in range(nc):
-        s_in[:, c], run = run, run * g[:, c] + st[:, c]
-    run = torch.zeros(bsz, h, n, p, dtype=f) if d_final is None \
-        else d_final.to(f)
+        s_in[c] = run
+        run = run * torch.exp(cend[c].to(wt))[..., None, None] + st[c]
+    run = torch.zeros(bsz, h, n, p, dtype=wt) if d_final is None \
+        else d_final.to(wt) * sig
     for c in reversed(range(nc)):
-        s_bar[:, c], run = run, run * g[:, c] + sb[:, c]
-    d_init = run
-    # 5. per head: dx, the decay gradient, ddt and da
-    ch = cum.movedim(-1, 2)                                 # [B, nc, H, Q]
-    lmat = torch.where(low, torch.exp(ch[..., :, None] - ch[..., None, :]),
-                       torch.zeros((), dtype=f))           # [B, nc, H, i, j]
-    bs = torch.einsum("bcjn,bchnp->bcjhp", bc, s_bar)
-    u = (bs * xc).sum(-1)                                   # [B, nc, Q, H]
-    wl = cb[:, :, None] * lmat
-    dx = w[..., None] * bs + dtc[..., None] * torch.einsum(
-        "bchij,bcihp->bcjhp", wl, dyc)
-    sbar_ij = torch.einsum("bcihp,bcjhp->bchij", dyc, xc) * low
-    t = sbar_ij * wl
-    m = t * dtc.movedim(-1, 2)[..., None, :]
-    dcum = (m.sum(-1) - m.sum(-2)).movedim(2, -1)
-    dcum = dcum + e * (torch.einsum("bcin,bchnp->bcihp", cc, s_in)
-                       * dyc).sum(-1) - w * u
-    ddt = t.sum(-2).movedim(2, -1) + dend * u
-    dcum[:, :, -1] += (w * u).sum(2) + torch.exp(cend) * (
-        s_bar * s_in).sum((-1, -2))
-    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
-    ddt = ddt + a.to(f) * dda
-    da = (dda * dtc).sum((0, 1, 2))
-    # 6. G, summed over heads; 7. dB and dC
-    gm = (sbar_ij * lmat * dtc.movedim(-1, 2)[..., None, :]).sum(2)
-    db = torch.einsum("bcjh,bcjhp,bchnp->bcjn", w, xc, s_bar) + \
-        torch.einsum("bcij,bcin->bcjn", gm, cc)
-    dc = torch.einsum("bcih,bcihp,bchnp->bcin", e, dyc, s_in) + \
-        torch.einsum("bcij,bcjn->bcin", gm, bc)
+        s_bar[c] = run
+        run = run * torch.exp(cend[c].to(wt))[..., None, None] + sb[c]
+    d_init = run * inv
+    dx = torch.zeros(bsz, nc * qt, h, p, dtype=wt)
+    ddt = torch.zeros(bsz, nc * qt, h, dtype=f)
+    db = torch.zeros(bsz, nc * qt, n, dtype=wt)
+    dc = torch.zeros(bsz, nc * qt, n, dtype=wt)
+    da = torch.zeros(h, dtype=f)
+    for c in range(nc):
+        ntr = -(-rows[c] // tile)
+        cu = cums[c]
+        # 5. per causal tile pair: C B^T once, then per head s = dy x^T
+        xcb = torch.zeros(bsz, qt, qt, dtype=wt)           # [j][i]
+        gparts = []
+        rowm = torch.zeros(bsz, h, ntr, qt, dtype=f)
+        colm = torch.zeros(bsz, h, ntr, qt, dtype=f)
+        colt = torch.zeros(bsz, h, ntr, qt, dtype=f)
+        for g0 in range(0, h, hpg):
+            gp = torch.zeros(bsz, qt, qt, dtype=wt)
+            for it in range(ntr):
+                ri = slice(it * tile, (it + 1) * tile)
+                for jt in range(it + 1):
+                    rj = slice(jt * tile, (jt + 1) * tile)
+                    cb = mm(cs_[c][:, ri], bs_[c][:, rj].transpose(1, 2),
+                            True, True)                    # [B, i, j]
+                    xcb[:, rj, ri] = cb.transpose(1, 2)
+                    low = torch.ones(tile, tile, dtype=torch.bool)
+                    if it == jt:
+                        low = low.tril()
+                    gacc = torch.zeros(bsz, tile, tile, dtype=wt)
+                    for k in range(g0, min(h, g0 + hpg)):
+                        sv = mm(ys[c][:, ri, k],
+                                xs[c][:, rj, k].transpose(1, 2), False, True)
+                        diff = cu[:, ri, k, None] - cu[:, None, rj, k]
+                        lv = torch.where(low, torch.exp(
+                            torch.where(low, diff, 0.0).to(wt)), 0.0)
+                        if it > jt:     # exp(cum_i - ref) exp(ref - cum_j)
+                            ref = cu[:, rj, k][:, -1, None]
+                            lv = torch.exp((cu[:, ri, k] - ref).to(wt))[
+                                ..., None] * torch.exp(
+                                (ref - cu[:, rj, k]).to(wt))[:, None, :]
+                        sl = sv * lv
+                        tt = sl * cb
+                        m = tt * dts[c][:, None, rj, k]
+                        rowm[:, k, jt, ri] = m.to(f).sum(-1)
+                        colm[:, k, it, rj] = m.to(f).sum(-2)
+                        colt[:, k, it, rj] = tt.to(f).sum(-2)
+                        gacc = gacc + sl * dts[c][:, None, rj, k]
+                    gp[:, ri, rj] = gacc
+            gparts.append(gp)
+        # 6. per head: dx and the rows' parts of the decay gradient
+        r = torch.arange(qt)
+        causal = r[None, :] >= r[:, None]                  # [j, i]: i >= j
+        hrow = torch.zeros(3, bsz, qt, h, dtype=f)
+        dot = torch.zeros(bsz, h, dtype=f)
+        for k in heads:
+            bsb = mm(bs_[c], s_bar[c][:, k], True)         # [B, qt, P]
+            u = (bsb * xs[c][:, :, k]).sum(-1)             # [B, qt]
+            diff = cu[:, None, :, k] - cu[:, :, None, k]   # cum_i - cum_j
+            lv = torch.where(causal, torch.exp(
+                torch.where(causal, diff, 0.0).to(wt)), 0.0)
+            amat = xcb * lv                                # [B, j, i]
+            acc = dend[c][:, :, k, None] * bsb + mm(amat, ys[c][:, :, k])
+            dx[:, c * qt:(c + 1) * qt, k] = dts[c][:, :, k, None] * acc * inv
+            csc = mm(cs_[c], s_in[c][:, k], True)
+            v = (csc * ys[c][:, :, k]).sum(-1)
+            wu = ws[c][:, :, k].to(f) * u.to(f)
+            hrow[0, :, :, k] = es[c][:, :, k].to(f) * v.to(f) - wu
+            hrow[1, :, :, k] = dend[c][:, :, k].to(f) * u.to(f)
+            hrow[2, :, :, k] = wu
+            dot[:, k] = (s_bar[c][:, k].to(f) * s_in[c][:, k].to(f)).sum(
+                (-1, -2)) * torch.exp(cend[c][:, k].to(wt)).to(f)
+        # 7. the decay gradient: the tile pairs' sums in order, in float64
+        valid = (r < rows[c]).to(f)[None, :, None]
+        dcum = hrow[0] * valid
+        dd = hrow[1] * valid
+        for i in range(rows[c]):
+            ti = i // tile
+            for jt in range(ti + 1):
+                dcum[:, i] += rowm[:, :, jt, i].to(f)
+            for it in range(ti, ntr):
+                dcum[:, i] -= colm[:, :, it, i].to(f)
+                dd[:, i] += colt[:, :, it, i].to(f)
+        dcum[:, q - 1] += (hrow[2] * valid).sum(1) + dot
+        dda = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        ddt[:, c * qt:(c + 1) * qt] = (dd + a.to(f) * dda) * inv
+        da = da + (dda * dts[c].to(f) * valid).sum((0, 1))
+        # 8., 9. dB and dC: parts of hpp heads, then the G part
+        g = gparts[0]
+        for gp in gparts[1:]:
+            g = g + gp
+        gmax = float(g.abs().max())
+        ge = int(np.frexp(gmax)[1]) if 0 < gmax < np.inf else 0
+        gscale = 2.0 ** (14 - ge) if pieces is not None else 1.0
+        gs = g * gscale
+        for out, parts, gterm in (
+                (db, [mm(ws[c][:, :, k, None] * xs[c][:, :, k],
+                         s_bar[c][:, k].transpose(1, 2)) for k in heads],
+                 mm(gs.transpose(1, 2), cs_[c], False, True)),
+                (dc, [mm(ys[c][:, :, k] * es[c][:, :, k, None],
+                         s_in[c][:, k].transpose(1, 2)) for k in heads],
+                 mm(gs, bs_[c], False, True))):
+            tot = torch.zeros(bsz, qt, n, dtype=wt)
+            for k0 in range(0, h, hpp):
+                part = parts[k0]
+                for k in range(k0 + 1, min(h, k0 + hpp)):
+                    part = part + parts[k]
+                tot = tot + part
+            out[:, c * qt:(c + 1) * qt] = (tot + gterm / gscale) * inv
+    da = da * inv
 
     def cut(v):
-        return v.reshape((bsz, nc * q) + v.shape[3:])[:, :s]
+        return torch.cat([v[:, c * qt:c * qt + rows[c]] for c in range(nc)],
+                         1)
     return cut(dx), cut(ddt), da, cut(db), cut(dc), d_init
 
 
@@ -300,7 +452,10 @@ def test_ssd_backward_stages_match_autograd(s, initial, final):
                initial_state=None if init is None
                else torch.as_tensor(init).double(),
                d_final=None if dfin is None else torch.as_tensor(dfin))
-    staged = ssd_backward_staged_ref(*t64, torch.as_tensor(dy), **opt)
+    # tiles of 4 rows (two a chunk) and groups and parts of two heads of
+    # three, so that the tile pairs' and the groups' sums are exercised
+    staged = ssd_backward_staged_ref(*t64, torch.as_tensor(dy), tile=4,
+                                     hpg=2, hpp=2, **opt)
     truth = ssd_backward_ref(*t64, torch.as_tensor(dy).double(), **opt)
     init_j = jnp.zeros((b, h, n, p)) if init is None else jnp.asarray(init)
     _, vjp = jax.vjp(lambda *v: ref_ssd(*v[:5], chunk=SSD_Q,
@@ -314,6 +469,91 @@ def test_ssd_backward_stages_match_autograd(s, initial, final):
         assert float((got - want).abs().max()) <= 1e-10 * scale, name
         assert float((got - torch.as_tensor(np.asarray(r)).double())
                      .abs().max()) <= 1e-4 * scale, name
+
+
+# the split-piece mirror's inputs: mamba2-780m's chunk and widths at four
+# heads, two chunks (the second of one row), mamba2's decay rates (a from
+# -1 to -16, dt = softplus(normal)), cotangents of the card tests' size
+# (~1) or of a train step's (~1e-5); with these (seed 1) float32 sums of
+# the tile pairs' rows and columns leave da 3.4e-4 of its largest off
+SSD_PIECES_SHAPE = (1, 257, 4, 64, 128, 256)
+
+
+@pytest.mark.parametrize("states", (False, True), ids=("zero", "init_final"))
+@pytest.mark.parametrize("dy_scale", (1.0, 1e-5), ids=("dy1", "dy1e-5"))
+@pytest.mark.parametrize("path", ("fp16", "bf16"))
+def test_ssd_backward_pieces_within_tolerance(path, dy_scale, states):
+    """The kernel's numbers (``pieces``: split operands, three passes,
+    float32 sums, sigma and G's scale, float64 tile sums) against float64
+    autograd of the same inputs (bf16-rounded x, B and C on the bf16
+    path), without or with an initial state and a final-state cotangent:
+    every float32 output within ``SSD_BWD_TOL`` of its largest |value|,
+    bf16 outputs (dx, dB and dC of the bf16 path, rounded to bf16 as the
+    kernel stores them) within ``SSD_BWD_TOL_BF16``."""
+    from repro_torch.kernels.ssd import ssd_backward_ref
+    b, s, h, p, n, chunk = SSD_PIECES_SHAPE
+    rng = np.random.default_rng(1)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+    x = normal(b, s, h, p)
+    dt = F.softplus(normal(b, s, h))
+    a = -torch.linspace(1.0, 16.0, h)
+    bm, cm = normal(b, s, n), normal(b, s, n)
+    init = normal(b, h, n, p) if states else None
+    dy = normal(b, s, h, p) * dy_scale
+    dfin = normal(b, h, n, p) * dy_scale if states else None
+    if path == "bf16":
+        x, bm, cm = (t.to(torch.bfloat16).float() for t in (x, bm, cm))
+    plan = backward_plan(b, s, h, p, n, chunk, 132)
+    opt = dict(chunk=chunk, initial_state=init, d_final=dfin)
+    got = ssd_backward_staged_ref(x, dt, a, bm, cm, dy, hpg=plan.hpg,
+                                  hpp=plan.hpp, pieces=path, **opt)
+    truth = ssd_backward_ref(
+        *(t.double() for t in (x, dt, a, bm, cm, dy)), chunk=chunk,
+        initial_state=None if init is None else init.double(),
+        d_final=None if dfin is None else dfin.double())
+    for name, g, want in zip(("dx", "ddt", "da", "db", "dc", "dinit"), got,
+                             truth):
+        tol = SSD_BWD_TOL
+        if path == "bf16" and name in ("dx", "db", "dc"):
+            g, tol = g.to(torch.bfloat16), SSD_BWD_TOL_BF16
+        err = float((g.double() - want).abs().max())
+        assert torch.isfinite(g).all() and \
+            err <= tol * float(want.abs().max()), (name, err)
+
+
+def test_backward_plan_fills_the_card():
+    """The backward's grid on 132 SMs: at mamba2-780m's layer (B = 4,
+    S = 640) and at B = 1, S = 513 every stage that multiplies has at least
+    one block with work a SM, at the layer two (264); the s stage's groups
+    and the dB/dC stage's parts cover the heads; the smallest shapes of the
+    card tests get a valid plan. (The stages' shared memory is the
+    library's, held to the card in ``tests/test_torch_cuda.py``.)"""
+    for shape, least in (((4, 640, 48, 64, 128, 256), 2 * 132),
+                         ((1, 513, 48, 64, 128, 256), 132)):
+        plan = backward_plan(*shape, 132)
+        assert min(plan.ctas.values()) >= least, (shape, plan)
+    # the layer: groups and parts of six heads, 736 and 720 blocks in three
+    # waves of two a SM (16 heads a block would leave 276 and 320, two
+    # waves with a second of a few blocks)
+    plan = backward_plan(4, 640, 48, 64, 128, 256, 132)
+    assert (plan.hpg, plan.hpp) == (6, 6)
+    assert plan.ctas == {"outer": 1152, "sg": 736, "head": 1152, "bc": 720}
+    assert backward_plan(1, 513, 48, 64, 128, 256, 132).ctas["sg"] == 168
+    # long prompts: twelve heads a group, one part (the partials' bytes)
+    plan = backward_plan(4, 4096, 48, 64, 128, 256, 132)
+    assert (plan.hpg, plan.hpp) == (12, 48)
+    for b, s, h, p, n, chunk in ((2, 80, 3, 16, 16, 32), (1, 40, 2, 5, 7, 16),
+                                 (2, 7, 2, 3, 4, 32), (1, 257, 4, 64, 128,
+                                                       256)):
+        q = min(chunk, s)
+        plan = backward_plan(b, s, h, p, n, q, 132)
+        assert 1 <= plan.hpg <= h and 1 <= plan.hpp <= h
+        # every (b, chunk, head) of the head stage has a block with work
+        assert plan.ctas["head"] >= b * h * -(-s // q)
+        assert all(v >= 1 for v in plan.ctas.values())
+    assert BWD_TILE == 64
 
 
 # ---------------------------------------------------------------------------
