@@ -48,7 +48,17 @@ Phases, each raising on failure (the script then exits non-zero):
      step; the SSD kernel must run once per layer in every full forward
      and never in a decode step. Phases 5 and 6 run their kNN-LM step a
      second time through the serving engine (``open_datastore_client``,
-     as the reference launcher looks up);
+     as the reference launcher looks up), and drive the streaming engine
+     (``StreamEngine``, 5s and 6s) over the phase's datastore and
+     prompts, 32 new tokens a session in two groups of 4 slots: overlapped
+     and serialized runs with equal tokens, and for qwen3 an int8 run and
+     the reference test's fault storm (tokens equal to its clean run),
+     each with flash-decode once a layer and step, the SSD once a layer
+     and prefill, the beam kernel in its lookups and a kNN hit rate of
+     at least 0.9; the float32 check of phase 5 also holds
+     ``StreamEngine``'s greedy tokens equal to ``ContinuousBatcher``'s,
+     and the two streaming examples run on the card in subprocesses,
+     beside phase 6 (the streaming part raises past 180 s);
   7. Pyramid's serving engine on phase 4's index: ``ServingEngine`` with
      2 replicas of each of the 16 shards (32 executor threads on one
      device arena), 1,024 queries through ``PyramidClient.search_batch``
@@ -1361,6 +1371,34 @@ LM_SPECS = {
 }
 LM_LOGITS_ATOL = 1e-3
 KNN_HIT_MIN = 0.9
+# the streaming engine (StreamEngine) in phases 5 and 6 (5s, 6s): the
+# phase's bf16 parameters, datastore and prompts, its cell's slots (two
+# groups of slots / 2), max_seq and knn_k, lam 0.3, greedy, max_new 32 (a
+# cut from the cell's 64, for the script's time). Runs: "overlap" over
+# the float32 arena; "serialized" (overlap=False, tokens equal to
+# overlap's); "int8" (quantize=True, rerank_factor=4; the share of tokens
+# equal to overlap's recorded); "clean" and "storm": the reference test's
+# engine settings (tests/test_stream.py::test_stream_decode_under_fault_
+# storm) without and under its two events, tokens equal
+STREAM_LAM = 0.3
+STREAM_MAX_NEW = 32
+STREAM_RUNS = {"qwen3-1.7b": ("overlap", "serialized", "int8", "clean",
+                              "storm"),
+               "mamba2-780m": ("overlap", "serialized")}
+STREAM_STORM_ENGINE = dict(replicas=2, hedge=True, hedge_deadline_s=0.25,
+                           auto_restart=False, executor_batch=4)
+# the float32 check's engine-against-batcher run (qwen3-1.7b): prompts of
+# 16 to 64 tokens, 16 new tokens each, in 4 slots
+STREAM_F32 = dict(requests=6, prompt_lo=16, prompt_hi=64, max_new=16,
+                  slots=4, max_seq=128, seed=8)
+# the two streaming examples, run on the card in a subprocess each, and
+# what their output must hold (tests/test_examples.py's markers)
+STREAM_EXAMPLES = {"torch_continuous_batching.py": ("10 requests",),
+                   "torch_retrieval_decode.py": ("streaming decode",
+                                                 "sessions")}
+# seconds the streaming runs (5s, 6s, the float32 run, and the script's
+# wait for the examples, which run beside phase 6) may take together
+STREAM_BUDGET_S = 180.0
 
 
 def synced(fn):
@@ -1405,6 +1443,188 @@ def mamba_layer_check(params, cfg, seq, prompt_len: int) -> dict:
     return {"layer_prefill_max_abs_err": err_prefill,
             "layer_decode_max_abs_err": err_decode,
             "layer_output_scale": scale}
+
+
+def stream_serve(params, cfg, prompts, dev, *, max_new: int, slots: int,
+                 max_seq: int, **kw) -> tuple:
+    """The prompts through a ``StreamEngine`` (engine kwargs ``kw``):
+    returns (tokens by request id, a record of the run). Each request
+    must complete exactly once with ``max_new`` tokens."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving.batcher import Request
+    from repro_torch.serving.stream import StreamEngine
+    gc.collect()            # an earlier engine's caches (a cycle through
+    torch.cuda.empty_cache()  # its registry's gauges) go before the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with StreamEngine(params, cfg, num_slots=slots, max_seq=max_seq,
+                      device=dev, **kw) as eng:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, np.asarray(p), max_new_tokens=max_new))
+        prefill_s = time.perf_counter() - t0
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        st = eng.stats()
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
+    ids = sorted(c.request_id for c in done)
+    if ids != list(range(len(prompts))) or any(
+            len(c.tokens) != max_new for c in done):
+        raise AssertionError(f"stream: completions {ids}, tokens "
+                             f"{[len(c.tokens) for c in done]}")
+    ret = st["retrieval"]
+    rec = {"seconds": seconds, "prefill_s": prefill_s,
+           "tokens_per_s": st["tokens_per_s"],
+           "tokens": st["tokens_emitted"], "steps": st["steps"],
+           "sessions": st["sessions"],
+           "retrieval": {k: ret[k] for k in (
+               "lookups", "hedges", "latency_p50_s", "latency_p99_s",
+               "wait_p50_s", "wait_p99_s", "knn_hit_rate")},
+           "launches": {k: after[k] - before[k] for k in after},
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    return {c.request_id: c.tokens for c in done}, rec
+
+
+def stream_path(arch: str, params, cfg, ds, prompts, conts, dev,
+                cell: dict) -> dict:
+    """5s / 6s: the phase's prompts through ``StreamEngine`` over its
+    datastore, in the runs of ``STREAM_RUNS[arch]``, each gated on
+    completions, the kNN hit rate and its launches (flash-decode once a
+    layer and dispatched step, the SSD once a layer and prefill, the beam
+    kernel in the lookups)."""
+    from repro_torch.serving.faults import FaultEvent, FaultSchedule
+    base = dict(max_new=STREAM_MAX_NEW, slots=cell["slots"],
+                max_seq=cell["max_seq"], datastore=ds, knn_k=cell["knn_k"],
+                lam=STREAM_LAM)
+    kwargs = {"overlap": dict(overlap=True),
+              "serialized": dict(overlap=False),
+              "int8": dict(overlap=True, quantize=True, rerank_factor=4),
+              "clean": dict(overlap=True, **STREAM_STORM_ENGINE)}
+    attn = "decode_attention"
+    res, tokens = {}, {}
+    t_path = time.perf_counter()
+    for name in STREAM_RUNS[arch]:
+        schedule = None
+        kw = kwargs.get(name)
+        if name == "storm":
+            schedule = FaultSchedule([
+                FaultEvent(step=2, action="kill", target="exec-s0-r0",
+                           when_actor="exec-s0-r0"),
+                FaultEvent(step=3, action="cpu_share", target="exec-s1-r1",
+                           value=0.1)])
+            kw = dict(kwargs["clean"], fault_schedule=schedule)
+        tokens[name], rec = stream_serve(params, cfg, prompts, dev,
+                                         **base, **kw)
+        n = rec["launches"]
+        rec["corpus_continuation_share"] = float(np.mean([
+            np.mean(np.asarray(tokens[name][i]) == c)
+            for i, c in conts.items()]))
+        if name != "overlap":
+            rec["tokens_equal_overlap_share"] = float(np.mean([
+                np.mean(np.asarray(tokens[name][i])
+                        == np.asarray(tokens["overlap"][i]))
+                for i in tokens[name]]))
+        log(f"{arch} stream {name}: {rec['tokens']} tokens in "
+            f"{rec['seconds']:.2f} s (prefills {rec['prefill_s']:.2f} s; "
+            f"{rec['tokens_per_s']:.1f} tokens/s after them), {rec['steps']}"
+            f" steps, retrieval {rec['retrieval']}, peak "
+            f"{rec['peak_device_bytes'] / 2 ** 30:.2f} GiB, launches {n}, "
+            f"corpus continuation {rec['corpus_continuation_share']:.4f}, "
+            f"equal to overlap {rec.get('tokens_equal_overlap_share')}")
+        if rec["retrieval"]["knn_hit_rate"] < KNN_HIT_MIN:
+            raise AssertionError(f"stream {name}: kNN hit rate "
+                                 f"{rec['retrieval']['knn_hit_rate']}")
+        want_attn = cfg.num_layers * rec["steps"] \
+            if LM_SPECS[arch]["step_kernel"] == attn else 0
+        want_ssd = cfg.num_layers * len(prompts) \
+            if LM_SPECS[arch]["forward_kernel"] == "ssd" else 0
+        if n[attn] != want_attn or n["ssd"] != want_ssd \
+                or n["beam_search"] <= 0:
+            raise AssertionError(f"stream {name}: launches {n}; expected "
+                                 f"{attn} {want_attn}, ssd {want_ssd} and "
+                                 f"the beam kernel")
+        if name == "storm":
+            rec["faults_fired"] = len(schedule.fired)
+            if len(schedule.fired) != len(schedule.events):
+                raise AssertionError(f"stream storm: {len(schedule.fired)} "
+                                     f"of {len(schedule.events)} fired")
+        res[name] = rec
+    for name, same_as in (("serialized", "overlap"), ("storm", "clean")):
+        if name in tokens and tokens[name] != tokens[same_as]:
+            raise AssertionError(f"stream: {name} tokens differ from "
+                                 f"{same_as}'s")
+    res["seconds"] = time.perf_counter() - t_path
+    log(f"{arch} stream runs: {res['seconds']:.2f} s")
+    return res
+
+
+def stream_float32_check(params, cfg, dev) -> dict:
+    """``StreamEngine`` LM-only against ``ContinuousBatcher`` on float32
+    weights: equal greedy tokens, request for request (the reference
+    test's criterion, in float32 so that the two heads' GEMM shapes
+    cannot part a bf16 near-tie)."""
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    c = STREAM_F32
+    rng = np.random.default_rng(c["seed"])
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in
+               rng.integers(c["prompt_lo"], c["prompt_hi"] + 1,
+                            c["requests"])]
+    t0 = time.perf_counter()
+    batcher = ContinuousBatcher(params, cfg, num_slots=c["slots"],
+                                max_seq=c["max_seq"], device=dev)
+    for i, p in enumerate(prompts):
+        batcher.submit(Request(i, p, max_new_tokens=c["max_new"]))
+    want = {d.request_id: d.tokens for d in batcher.run_until_drained()}
+    got, rec = stream_serve(params, cfg, prompts, dev,
+                            max_new=c["max_new"], slots=c["slots"],
+                            max_seq=c["max_seq"])
+    rec["tokens_equal_batcher"] = got == want
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"{cfg.name} float32 stream check: tokens equal to "
+        f"ContinuousBatcher's {rec['tokens_equal_batcher']} over "
+        f"{len(prompts)} requests, {rec['seconds']:.2f} s, launches "
+        f"{rec['launches']}")
+    if not rec["tokens_equal_batcher"]:
+        raise AssertionError(f"float32 stream check: {got} != {want}")
+    return rec
+
+
+def start_stream_examples() -> dict:
+    """Start the two streaming examples on the card, a subprocess each
+    (:func:`finish_stream_examples` collects them)."""
+    return {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name), "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))))
+        for name in STREAM_EXAMPLES}
+
+
+def finish_stream_examples(procs: dict) -> dict:
+    """Wait for the examples: each must exit 0 and print the lines its
+    twin's test asserts. ``seconds`` is the time the script waited."""
+    t0 = time.perf_counter()
+    res, failed = {}, []
+    for name, (start, proc) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        res[name] = {"rc": proc.returncode,
+                     "seconds": time.perf_counter() - start,
+                     "last_line": (out.strip().splitlines() or [""])[-1]}
+        log(f"example {name}: rc {proc.returncode}, done within "
+            f"{res[name]['seconds']:.2f} s: {res[name]['last_line']}")
+        if proc.returncode != 0 or any(
+                m not in out for m in STREAM_EXAMPLES[name]):
+            failed.append(f"{name}: {out[-2000:]}{err[-4000:]}")
+    res["seconds"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+    return res
 
 
 def lm_float32_check(dev, arch: str) -> dict:
@@ -1483,7 +1703,10 @@ def lm_float32_check(dev, arch: str) -> dict:
     else:
         ok = (err <= LM_LOGITS_ATOL and prefill_err <= LM_LOGITS_ATOL
               and greedy_equal)
-    del params, cache, full, logits
+    del cache, full, logits
+    if ok and arch == "qwen3-1.7b":
+        res["stream"] = stream_float32_check(params, cfg, dev)
+    del params
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError(f"{arch} float32 check failed: {res}")
@@ -1635,6 +1858,17 @@ def lm_path(dev, arch: str) -> dict:
         raise AssertionError(f"{spec['forward_kernel']} launched "
                              f"{fwd_in_decode} times in decode steps")
 
+    # 5s / 6s: the same prompts through the streaming engine; even
+    # requests are corpus prefixes, whose continuation is recorded
+    conts = {i: corpus[i // 2 % corpus_seqs, n:n + STREAM_MAX_NEW]
+             for i, n in enumerate(lengths) if i % 2 == 0}
+    peak = torch.cuda.max_memory_allocated()
+    res["stream"] = stream_path(arch, params, cfg, ds, prompts, conts, dev,
+                                cell)
+    forwards += n_requests * len(STREAM_RUNS[arch])
+    peak = max([peak] + [r["peak_device_bytes"] for r in
+                         res["stream"].values() if isinstance(r, dict)])
+
     # kNN-LM step: the hidden state at a corpus prefix's last position is
     # a stored key, so the nearest neighbour's value is the next token
     prefix = [(i // 2 % corpus_seqs, int(n)) for i, n in enumerate(lengths)
@@ -1675,7 +1909,7 @@ def lm_path(dev, arch: str) -> dict:
                 "lookup_ms_engine": 1e3 * float(np.mean(lookups_c))})
     res["launches"] = launch_counts()
     res["full_forwards"] = forwards
-    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    res["peak_device_bytes"] = max(peak, torch.cuda.max_memory_allocated())
     log(f"kNN-LM: hit rate {hit:.4f} over {len(prefix)} corpus prefixes "
         f"(interpolated {res['interpolated_hit_rate']:.4f}, LM alone "
         f"{res['lm_hit_rate']:.4f}), lookup {res['lookup_ms']:.2f} ms for "
@@ -3189,7 +3423,23 @@ def main() -> int:
     result["lm_float32_check"] = lm_float32_check(dev, "qwen3-1.7b")
     result["lm_path"] = lm_path(dev, "qwen3-1.7b")
     result["ssm_float32_check"] = lm_float32_check(dev, "mamba2-780m")
-    result["ssm_path"] = lm_path(dev, "mamba2-780m")
+    # the examples run beside phase 6's host-bound datastore build
+    examples = start_stream_examples()
+    try:
+        result["ssm_path"] = lm_path(dev, "mamba2-780m")
+    except BaseException:
+        for _, proc in examples.values():
+            proc.kill()
+        raise
+    result["stream_examples"] = finish_stream_examples(examples)
+    stream_s = (result["lm_float32_check"]["stream"]["seconds"]
+                + result["lm_path"]["stream"]["seconds"]
+                + result["ssm_path"]["stream"]["seconds"]
+                + result["stream_examples"]["seconds"])
+    log(f"streaming runs: {stream_s:.1f} s")
+    if stream_s > STREAM_BUDGET_S:
+        raise AssertionError(f"the streaming runs took {stream_s:.1f} s, "
+                             f"past {STREAM_BUDGET_S} s")
     result["serving"] = serving_path(
         state, result["main_path"]["float32"]["recall@10"])
     result["store"], result["maintenance"] = store_path(state)

@@ -42,6 +42,14 @@ def _library():
     return _lib
 
 
+def load_kernel() -> None:
+    """Build (if needed) and load ``csrc/decode_attention.cu`` now, in the
+    calling thread; raises if nvcc or the load fails. A caller that starts
+    threads (the streaming engine's datastore client) does this first, so
+    that no first-use build runs while those threads launch kernels."""
+    _library()
+
+
 class DecodePlan(NamedTuple):
     tile_rows: int        # cache rows of a tile
     tiles_per_span: int   # tiles one block walks

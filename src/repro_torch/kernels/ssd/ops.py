@@ -65,6 +65,13 @@ def _library():
     return _lib
 
 
+def load_kernel() -> None:
+    """Build (if needed) and load ``csrc/ssd.cu`` (the forward scan) now,
+    in the calling thread; raises if nvcc or the load fails. See
+    ``repro_torch.kernels.beam_search.load_kernel``."""
+    _library()
+
+
 def _backward_library():
     global _blib
     if _blib is None:

@@ -748,6 +748,57 @@ def test_serve_entry_point_runs_on_card(cuda, arch, retrieval):
     assert (counts["beam_search"] > 0) == retrieval, counts
 
 
+@pytest.mark.parametrize("arch", ("qwen3-1.7b", "mamba2-780m"))
+def test_stream_engine_on_card_launches_its_kernels(cuda, arch):
+    """``StreamEngine`` on the card (reduced config): flash-decode once a
+    layer in every dispatched step (qwen3), the SSD kernel once a layer in
+    every prefill and never in a step (mamba2), the beam kernel in the
+    lookups; LM-only tokens equal to the CPU's."""
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batcher import Request
+    from repro_torch.serving.retrieval import build_datastore
+    from repro_torch.serving.stream import StreamEngine
+    from repro_torch.train.tree import map_tree
+    cfg = get_arch(arch).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = map_tree(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(1)
+    corpus = rng.integers(0, cfg.vocab_size, (8, 24))
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 9, 30, 7, 12)]
+    pyr = PyramidConfig(metric="l2", num_shards=2, meta_size=16,
+                        sample_size=100, branching_factor=2, max_degree=8,
+                        max_degree_upper=4, ef_construction=20,
+                        ef_search=30)
+    tokens = {}
+    for params, dev in ((cpu, torch.device("cpu")), (card, cuda)):
+        for retrieval in (False, True):
+            ds = build_datastore(params, cfg, [corpus], pyr, device=dev) \
+                if retrieval else None
+            reset_launch_counts()
+            with StreamEngine(params, cfg, num_slots=4, max_seq=64,
+                              datastore=ds, knn_k=4, lam=0.3,
+                              device=dev) as eng:
+                for i, p in enumerate(prompts):
+                    eng.submit(Request(i, p, max_new_tokens=6))
+                done = eng.run_until_drained()
+                steps = eng.stats()["steps"]
+            n = launch_counts()
+            tokens[dev.type, retrieval] = {c.request_id: c.tokens
+                                           for c in done}
+            assert len(done) == len(prompts)
+            if dev.type == "cpu":
+                assert not any(n.values()), n
+                continue
+            attn = cfg.num_layers * steps if arch == "qwen3-1.7b" else 0
+            ssd = cfg.num_layers * len(prompts) \
+                if arch == "mamba2-780m" else 0
+            assert n["decode_attention"] == attn, n
+            assert n["ssd"] == ssd, n
+            assert (n["beam_search"] > 0) == retrieval, n
+    assert tokens["cuda", False] == tokens["cpu", False]
+
+
 # ---------------------------------------------------------------------------
 # online maintenance and the LSH baseline on the card
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.tenancy import TenantManager
 from repro_torch.store import IndexStore
 from repro_torch.serving.retrieval import build_datastore
+from repro_torch.serving.stream import StreamEngine
 
 MODULES = sorted(m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, prefix="repro_torch."))
@@ -56,6 +57,7 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.train.tree", "repro_torch.launch.train",
             "repro_torch.kernels.ssd", "repro_torch.kernels.ssd.ops",
             "repro_torch.kernels.ssd.ref"} <= set(MODULES)
+    assert "repro_torch.serving.stream" in MODULES
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"
@@ -98,6 +100,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
     params = init_params(lm, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatcher(params, lm, num_slots=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamEngine(params, lm, num_slots=2, max_seq=8)
     toks = np.zeros((1, 4), np.int64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_datastore(params, lm, [toks], cfg)
