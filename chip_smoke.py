@@ -14,7 +14,8 @@ Phases, each raising on failure (the script then exits non-zero):
      also with its time over the longest walk's expansions);
   3. a small index searched on the card and on the CPU (plain versions),
      float32, int8 and filtered: the answers must agree;
-  4. the main path: ``build_pyramid_index_parallel`` on
+  4. the main path: ``build_pyramid_index_parallel`` (the shards' host
+     builds in a process pool, largest first) on
      ``clustered_vectors(N, 128)`` with the paper's index parameters,
      then ``search_single_host`` on float32, int8 (rerank factor 4) and a
      filtered batch, each answer checked (well formed, exact scores of
@@ -44,16 +45,17 @@ Phases, each raising on failure (the script then exits non-zero):
      weights): a float32 check of the recurrent decode from the prefill
      state against the full forward, held layer by layer (each layer fed
      the full forward's own inputs; the end-to-end logits are recorded),
-     a datastore of 4,096 keys, 16 requests in 8 slots, and a kNN-LM
+     a datastore of 2,048 keys, 16 requests in 8 slots, and a kNN-LM
      step; the SSD kernel must run once per layer in every full forward
      and never in a decode step. Phases 5 and 6 run their kNN-LM step a
      second time through the serving engine (``open_datastore_client``,
      as the reference launcher looks up), and drive the streaming engine
      (``StreamEngine``, 5s and 6s) over the phase's datastore and
-     prompts, 32 new tokens a session in two groups of 4 slots: overlapped
-     and serialized runs with equal tokens, and for qwen3 an int8 run and
-     the reference test's fault storm (tokens equal to its clean run),
-     each with flash-decode once a layer and step, the SSD once a layer
+     prompts, 16 new tokens a session in two groups of 4 slots: for qwen3
+     the reference test's clean run (overlapped), a serialized run with
+     tokens equal to it, an int8 run, and the test's fault storm (tokens
+     equal to the clean run's); for mamba2 overlapped and serialized
+     runs with equal tokens; each with flash-decode once a layer and step, the SSD once a layer
      and prefill, the beam kernel in its lookups and a kNN hit rate of
      at least 0.9; the float32 check of phase 5 also holds
      ``StreamEngine``'s greedy tokens equal to ``ContinuousBatcher``'s,
@@ -108,6 +110,25 @@ Phases, each raising on failure (the script then exits non-zero):
      checkpoint loaded back bit for bit. Phase 2 holds the SSD's backward
      kernel against float64 autograd at three shapes, the layer's in bf16
      and in float32.
+  12. sliding-window and local-global attention (under 150 s): 12a a
+     float32 check of gemma3-12b at the reference config's widths
+     (``configs/gemma3_12b.py``: d = 3,840, hd = 240) and depth 12
+     (two 5:1 periods: ten layers on 1,024-slot rings, two global; the
+     depth is the only cut), 4 prompts of 1,100 tokens then 32 greedy
+     steps, decode logits within 1e-3 of the full forward and greedy
+     tokens equal; 12b gemma3-12b's kNN-LM serving at full width (48
+     layers, bf16 synthetic weights, 40 ring layers and 8 global ones) as
+     phase 5 serves qwen3: a 1,400-key datastore (d = 3,840), 16
+     requests of 700 to 1,400 tokens in 8 slots of a 2,048-row cache (a
+     ring wraps in prefill, in decode, or never), 64 new tokens each,
+     flash-decode 48 times a step, one overlapped ``StreamEngine`` run
+     of 32 new tokens, and the kNN-LM step; 12c the float32 checks of
+     h2o-danube-1.8b (hd = 80, a 4,000-token prompt and 200 steps
+     through its 4,096-slot rings) and chatglm3-6b (16 query heads a kv
+     head, 2-D rope; 256 tokens and 32 steps) at their configs' widths
+     and depth 2. Flash-decode's plain version never runs on the card there.
+     Phase 2 holds flash-decode at phase 12's shapes (hd = 80 and 240, G
+     = 16, rings, a window) and the beam kernel at d = 3,840.
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -241,17 +262,21 @@ def beam_rows(n: int) -> list:
     routing walk's over the meta-HNSW (1,000 centres); an engine
     executor's batch (16 walks over one shard of n / 16 rows); and the
     kNN-LM lookups' shard walks of phases 5 and 6 (DATASTORE_PYR: 4
-    shards of the 8,192-key qwen3-1.7b and 4,096-key mamba2-780m
-    datastores at their widths, M0 = 2 x max_degree, 8 slots, ef=60)."""
+    shards of the 4,096-key qwen3-1.7b, 2,048-key mamba2-780m and
+    1,400-key gemma3-12b datastores at their widths, M0 = 2 x
+    max_degree, 8 slots, ef=60; d = 3,840 stages slices of d, not whole
+    rows)."""
     rows = [dict(metric=m, quantized=qz) for qz in (False, True)
             for m in ("l2", "ip", "angular")]
     return rows + [
         dict(metric="l2", quantized=False, n=16_384, c=512, ef=800),
         dict(metric="l2", quantized=False, s=1, n=1000, c=1024, ef=64),
         dict(metric="l2", quantized=False, s=1, n=n // 16, c=16, ef=100),
-        dict(metric="l2", quantized=False, s=4, n=2048, d=2048, m0=24, c=8,
+        dict(metric="l2", quantized=False, s=4, n=1024, d=2048, m0=24, c=8,
              ef=60),
-        dict(metric="l2", quantized=False, s=4, n=1024, d=1536, m0=24, c=8,
+        dict(metric="l2", quantized=False, s=4, n=512, d=1536, m0=24, c=8,
+             ef=60),
+        dict(metric="l2", quantized=False, s=4, n=350, d=3840, m0=24, c=8,
              ef=60)]
 
 
@@ -506,11 +531,12 @@ def device_kernels_of(fn, reps: int, name: str):
     return us / 1e3 / reps, sum(e.count for e in events) / reps, by_name
 
 
-def served_positions(b: int, seed: int) -> np.ndarray:
-    """Cache positions of phase 5's decode steps: a prompt of prompt_lo to
-    prompt_hi tokens plus 0 to max_new generated ones, in each of b
-    slots."""
-    cell = LM_SPECS["qwen3-1.7b"]["cell"]
+def served_positions(b: int, seed: int,
+                     arch: str = "qwen3-1.7b") -> np.ndarray:
+    """Cache positions of ``arch``'s served decode steps (its LM_SPECS
+    cell): a prompt of prompt_lo to prompt_hi tokens plus 0 to max_new
+    generated ones, in each of b slots."""
+    cell = LM_SPECS[arch]["cell"]
     rng = np.random.default_rng(seed)
     return (rng.integers(cell["prompt_lo"], cell["prompt_hi"] + 1, b)
             + rng.integers(0, cell["max_new"] + 1, b) - 1)
@@ -520,8 +546,8 @@ def decode_inputs(dev, *, b: int = 8, s: int = 1024, h: int = 16,
                   kvh: int = 8, hd: int = 128, dtype: str = "bfloat16",
                   pos: str = "random", seed: int = 3):
     """q [B, H, hd] f32, a cache [B, S, KV, hd] in ``dtype`` and ``pos``:
-    "random" (0..S-1), "full" (S - 1) or "served"
-    (:func:`served_positions`)."""
+    "random" (0..S-1), "full" (S - 1), "served" (:func:`served_positions`
+    of qwen3-1.7b) or "served-gemma3" (those of gemma3-12b)."""
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -530,9 +556,10 @@ def decode_inputs(dev, *, b: int = 8, s: int = 1024, h: int = 16,
     v = torch.randn(b, s, kvh, hd, device=dev, generator=g).to(dt)
     if pos == "full":
         p = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
-    elif pos == "served":
-        p = torch.as_tensor(served_positions(b, seed), dtype=torch.int32,
-                            device=dev)
+    elif pos.startswith("served"):
+        arch = "gemma3-12b" if pos == "served-gemma3" else "qwen3-1.7b"
+        p = torch.as_tensor(served_positions(b, seed, arch),
+                            dtype=torch.int32, device=dev)
     else:
         p = torch.randint(0, s, (b,), device=dev, generator=g,
                           dtype=torch.int32)
@@ -550,12 +577,15 @@ def rotating(k, v, fn):
     return (lambda: fn(*next(it))), copies
 
 
-def decode_bound(k, pos, b: int, h: int) -> dict:
-    """The least the card must move: the valid K and V rows (0..pos[b]),
-    q and pos in, the float32 output out; the operations are q.k and p.v
-    for every head and valid row."""
+def decode_bound(k, pos, b: int, h: int, window: int = 0) -> dict:
+    """The least the card must move: the valid K and V rows (0..pos[b],
+    or the last ``window`` of them), q and pos in, the float32 output
+    out; the operations are q.k and p.v for every head and valid row."""
     kvh, hd = k.shape[2], k.shape[3]
-    rows = int((pos.long() + 1).sum())
+    valid = pos.long() + 1
+    if window:
+        valid = valid.clamp(max=window)
+    rows = int(valid.sum())
     nbytes = (2 * rows * kvh * hd * k.element_size() + b * h * hd * 4 * 2
               + b * 4)
     ops = 4 * rows * h * hd
@@ -565,9 +595,14 @@ def decode_bound(k, pos, b: int, h: int) -> dict:
 
 def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
                  kvh: int = 8, hd: int = 128, dtype: str = "bfloat16",
-                 pos: str = "random", seed: int = 3) -> dict:
-    """Flash-decode against its plain version (:func:`decode_inputs`).
-    Launches rotate over copies of the cache (:func:`rotating`)."""
+                 pos: str = "random", seed: int = 3, window: int = 0,
+                 ring: bool = False) -> dict:
+    """Flash-decode against its plain version (:func:`decode_inputs`),
+    with ``window`` the lower bound of a full-size cache on a sliding
+    layer; ``ring``: the cache is a ring of S slots at positions past it,
+    read as a sliding layer's decode reads it (pos_eff = min(pos, S - 1),
+    every slot valid). Launches rotate over copies of the cache
+    (:func:`rotating`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention_ref,
@@ -575,35 +610,46 @@ def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
     q, k, v, pos_t = decode_inputs(dev, b=b, s=s, h=h, kvh=kvh, hd=hd,
                                    dtype=dtype, pos=pos, seed=seed)
     pos_mode, pos = pos, pos_t
-    out = flash_decode_cuda(q, k, v, pos)
-    ref = decode_attention_ref(q, k, v, pos)
+    if ring:        # absolute positions s..3s-1, the ring's slots all valid
+        pos = (pos + s).clamp(max=s - 1)
+    out = flash_decode_cuda(q, k, v, pos, window)
+    ref = decode_attention_ref(q, k, v, pos, window)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     if not torch.allclose(out, ref, rtol=DECODE_TOL, atol=DECODE_TOL):
-        raise AssertionError(f"flash_decode B={b} S={s} {dtype} {pos_mode}: "
-                             f"kernel disagrees with its plain version (max "
-                             f"abs err {err:.3g})")
-    mask = (torch.arange(s, device=dev)[None, :] <= pos[:, None].long())
+        raise AssertionError(f"flash_decode B={b} S={s} H={h} KV={kvh} "
+                             f"hd={hd} {dtype} {pos_mode} window={window} "
+                             f"ring={ring}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3g})")
+    rows = torch.arange(s, device=dev)[None, :]
+    mask = rows <= pos[:, None].long()
+    if window:
+        mask &= rows > pos[:, None].long() - window
     mask = mask[:, None, None, :]
     qs = q.to(k.dtype)[:, :, None, :]
     launch, copies = rotating(
-        k, v, lambda kk, vv: flash_decode_cuda(q, kk, vv, pos))
+        k, v, lambda kk, vv: flash_decode_cuda(q, kk, vv, pos, window))
     ms = cuda_ms(launch, 100)
     kernel_ms = device_kernels_of(launch, 20, "flash_decode")[0]
     plain_ms = cuda_ms(rotating(
-        k, v, lambda kk, vv: decode_attention_ref(q, kk, vv, pos))[0], 5)
+        k, v, lambda kk, vv: decode_attention_ref(q, kk, vv, pos,
+                                                  window))[0], 5)
     library_ms = cuda_ms(rotating(
         k, v, lambda kk, vv: F.scaled_dot_product_attention(
             qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
             enable_gqa=True))[0], 100)
     del launch
     torch.cuda.empty_cache()
-    shown = {"full": "S-1", "served": "served"}.get(pos_mode, pos_mode)
+    shown = {"full": "S-1", "served": "served",
+             "served-gemma3": "gemma3 served"}.get(pos_mode, pos_mode)
+    if ring:
+        shown = "past the ring (every slot)"
     return {"shape": f"B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} "
-                     f"pos={shown}",
+                     f"pos={shown}" + (f" window={window}" if window else "")
+                     + (" ring" if ring else ""),
             "max_abs_err": err, "ms": ms, "kernel_device_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "cache_copies": copies, **decode_bound(k, pos, b, h)}
+            "cache_copies": copies, **decode_bound(k, pos, b, h, window)}
 
 
 def check_ssd(dev, *, b: int = 1, s: int = 513, dtype: str = "bfloat16",
@@ -870,9 +916,21 @@ def kernels_vs_plain(dev, n: int) -> dict:
                 f"FMA bound {r['fp32_fma_bound_ms']:.4f} ms)")
     # a full-width qwen3-1.7b decode step's attention (8 slots, a 1,024-row
     # cache; bf16 as served, f32 as checked), then a long cache, then
-    # phase 5's served positions
+    # phase 5's served positions; then phase 12's layers: gemma3-12b's
+    # local decode (a 1,024-slot ring, hd = 240, past the ring) and global
+    # decode (2,048 rows at 12b's served positions), h2o-danube-1.8b's
+    # (a 4,096-slot ring, hd = 80) and chatglm3-6b's (16 query heads a kv
+    # head), a full-size cache with a window, and float32 at hd = 80 and
+    # 240
     for kw in (dict(), dict(dtype="float32"),
-               dict(s=32_768, pos="full"), dict(pos="served")):
+               dict(s=32_768, pos="full"), dict(pos="served"),
+               dict(hd=240, ring=True),
+               dict(s=2048, hd=240, pos="served-gemma3"),
+               dict(s=4096, h=32, hd=80, ring=True),
+               dict(s=2048, h=32, kvh=2),
+               dict(s=2048, hd=240, window=1024, pos="full"),
+               dict(s=4096, h=32, hd=80, ring=True, dtype="float32"),
+               dict(hd=240, ring=True, dtype="float32")):
         r = check_decode(dev, **kw)
         res["decode_attention"].append(r)
         log(f"decode_attention {r['shape']}: max err {r['max_abs_err']:.3g}"
@@ -1320,7 +1378,8 @@ def lsh_baseline(x, q, k: int, truth, pyramid_qps: float) -> dict:
 # ---------------------------------------------------------------------------
 
 # the reference launcher's datastore index (src/repro/launch/serve.py:106),
-# unchanged for 8,192 keys at d = 2048 and 4,096 keys at d = 1536
+# unchanged for 4,096 keys at d = 2048, 2,048 keys at d = 1536 and 1,400
+# keys at d = 3,840
 DATASTORE_PYR = dict(metric="l2", num_shards=4, meta_size=32,
                      sample_size=400, branching_factor=2, max_degree=12,
                      max_degree_upper=6, ef_construction=40, ef_search=60)
@@ -1329,7 +1388,7 @@ DATASTORE_PYR = dict(metric="l2", num_shards=4, meta_size=32,
 PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
 # one served model per phase:
 #   check: the float32 check, a batch of prompts then greedy decode steps;
-#   cell: a seeded corpus of corpus_seqs x 513 tokens (its datastore is
+#   cell: a seeded corpus of corpus_seqs x corpus_len tokens (its datastore is
 #     built from batches of ds_batch rows), the prefill timed on the first
 #     prompt or on a corpus prefix of prefill_len, `requests` requests whose
 #     prompt lengths are drawn from prompt_lo..prompt_hi (every other one
@@ -1350,41 +1409,78 @@ PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
 #     Layer by layer nothing is amplified, and the prefill state's
 #     hand-off to the recurrent decode is held at every layer.
 LM_SPECS = {
+    # a corpus of 8 rows (4,096 keys), a cut of scale that keeps time for
+    # phase 12
     "qwen3-1.7b": dict(
         check=dict(batch=4, prompt_len=64, steps=32),
-        cell=dict(corpus_seqs=16, corpus_len=513, ds_batch=16, requests=16,
+        cell=dict(corpus_seqs=8, corpus_len=513, ds_batch=8, requests=16,
                   prompt_lo=64, prompt_hi=256, prefix_max=512, slots=8,
                   max_seq=1024, max_new=64, knn_k=8, seed=11,
                   prefill_len=None),
         kernels=PYRAMID_KERNELS + ("decode_attention",), absent=("ssd",),
         step_kernel="decode_attention", forward_kernel=None, gate="logits"),
-    # half of phase 5's corpus (4,096 keys), a cut of scale to keep time
-    # for the script; prompts of two and three chunks of 256
+    # half of phase 5's corpus (2,048 keys), a cut of scale to keep time
+    # for the script (phase 12); prompts of two and three chunks of 256
     "mamba2-780m": dict(
         check=dict(batch=4, prompt_len=300, steps=32),
-        cell=dict(corpus_seqs=8, corpus_len=513, ds_batch=1, requests=16,
+        cell=dict(corpus_seqs=4, corpus_len=513, ds_batch=1, requests=16,
                   prompt_lo=64, prompt_hi=768, prefix_max=512, slots=8,
                   max_seq=1024, max_new=64, knn_k=8, seed=12,
                   prefill_len=512),
         kernels=PYRAMID_KERNELS + ("ssd",), absent=("decode_attention",),
         step_kernel=None, forward_kernel="ssd", gate="layers"),
+    # phase 12: gemma3-12b's local-global stack, 40 layers on 1,024-slot
+    # rings and 8 global ones. The float32 check runs 2 of its 5:1
+    # periods (num_layers 12, the only cut of the phase: 48 float32
+    # layers are 50 GB) over prompts of 1,100 tokens, past the window; the
+    # cell serves all 48 layers in bf16 over one corpus row of 1,401
+    # tokens (1,400 keys: its prefixes must reach the longest prompt),
+    # prompts of 700 to 1,400 tokens in a 2,048-row cache, so that some
+    # rings wrap in prefill, some in decode and some never (the seed is
+    # one that draws all three)
+    "gemma3-12b": dict(
+        check=dict(batch=4, prompt_len=1100, steps=32, num_layers=12),
+        cell=dict(corpus_seqs=1, corpus_len=1401, ds_batch=1, requests=16,
+                  prompt_lo=700, prompt_hi=1400, prefix_max=1400, slots=8,
+                  max_seq=2048, max_new=64, knn_k=8, seed=12,
+                  prefill_len=None),
+        kernels=PYRAMID_KERNELS + ("decode_attention",), absent=("ssd",),
+        step_kernel="decode_attention", forward_kernel=None, gate="logits"),
+    # phase 12c, float32 checks at the configs' widths and depth 2 (the
+    # cut): h2o-danube-1.8b (hd = 80) over a prompt of 4,000 tokens and
+    # 200 steps, so that its 4,096-slot rings wrap; chatglm3-6b (16 query
+    # heads a kv head, 2-D rope) over 256 tokens and 32 steps
+    "h2o-danube-1.8b": dict(
+        check=dict(batch=1, prompt_len=4000, steps=200, num_layers=2),
+        forward_kernel=None, gate="logits"),
+    "chatglm3-6b": dict(
+        check=dict(batch=1, prompt_len=256, steps=32, num_layers=2),
+        forward_kernel=None, gate="logits"),
 }
 LM_LOGITS_ATOL = 1e-3
 KNN_HIT_MIN = 0.9
 # the streaming engine (StreamEngine) in phases 5 and 6 (5s, 6s): the
 # phase's bf16 parameters, datastore and prompts, its cell's slots (two
-# groups of slots / 2), max_seq and knn_k, lam 0.3, greedy, max_new 32 (a
-# cut from the cell's 64, for the script's time). Runs: "overlap" over
-# the float32 arena; "serialized" (overlap=False, tokens equal to
-# overlap's); "int8" (quantize=True, rerank_factor=4; the share of tokens
-# equal to overlap's recorded); "clean" and "storm": the reference test's
-# engine settings (tests/test_stream.py::test_stream_decode_under_fault_
-# storm) without and under its two events, tokens equal
+# groups of slots / 2), max_seq and knn_k, lam 0.3, greedy, max_new
+# STREAM_MAX_NEW[arch] (a cut from the cell's 64, for the script's time:
+# 16 for qwen3 and mamba2, whose six runs share the 180 s budget with
+# the float32 run and the examples; gemma3's one run keeps 32).
+# Runs: "overlap" over
+# the float32 arena with the engine's defaults; "clean", the reference
+# test's engine settings (tests/test_stream.py::test_stream_decode_under_
+# fault_storm), also overlapped; "serialized" (overlap=False); "int8"
+# (quantize=True, rerank_factor=4; the share of tokens equal to the first
+# run's recorded); "storm", clean's settings under the test's two events.
+# An arch's first run is overlapped and the others are held to it:
+# serialized tokens equal to the first run's, the storm's to clean's.
+# qwen3 starts from "clean" and has no separate "overlap" run: engine
+# settings change timing, never tokens (AF3 and AG4: clean's tokens equal
+# to overlap's), and the run it saves keeps the part within its budget
 STREAM_LAM = 0.3
-STREAM_MAX_NEW = 32
-STREAM_RUNS = {"qwen3-1.7b": ("overlap", "serialized", "int8", "clean",
-                              "storm"),
-               "mamba2-780m": ("overlap", "serialized")}
+STREAM_MAX_NEW = {"qwen3-1.7b": 16, "mamba2-780m": 16, "gemma3-12b": 32}
+STREAM_RUNS = {"qwen3-1.7b": ("clean", "serialized", "int8", "storm"),
+               "mamba2-780m": ("overlap", "serialized"),
+               "gemma3-12b": ("overlap",)}
 STREAM_STORM_ENGINE = dict(replicas=2, hedge=True, hedge_deadline_s=0.25,
                            auto_restart=False, executor_batch=4)
 # the float32 check's engine-against-batcher run (qwen3-1.7b): prompts of
@@ -1496,7 +1592,7 @@ def stream_path(arch: str, params, cfg, ds, prompts, conts, dev,
     layer and dispatched step, the SSD once a layer and prefill, the beam
     kernel in the lookups)."""
     from repro_torch.serving.faults import FaultEvent, FaultSchedule
-    base = dict(max_new=STREAM_MAX_NEW, slots=cell["slots"],
+    base = dict(max_new=STREAM_MAX_NEW[arch], slots=cell["slots"],
                 max_seq=cell["max_seq"], datastore=ds, knn_k=cell["knn_k"],
                 lam=STREAM_LAM)
     kwargs = {"overlap": dict(overlap=True),
@@ -1504,6 +1600,7 @@ def stream_path(arch: str, params, cfg, ds, prompts, conts, dev,
               "int8": dict(overlap=True, quantize=True, rerank_factor=4),
               "clean": dict(overlap=True, **STREAM_STORM_ENGINE)}
     attn = "decode_attention"
+    first = STREAM_RUNS[arch][0]
     res, tokens = {}, {}
     t_path = time.perf_counter()
     for name in STREAM_RUNS[arch]:
@@ -1522,10 +1619,10 @@ def stream_path(arch: str, params, cfg, ds, prompts, conts, dev,
         rec["corpus_continuation_share"] = float(np.mean([
             np.mean(np.asarray(tokens[name][i]) == c)
             for i, c in conts.items()]))
-        if name != "overlap":
-            rec["tokens_equal_overlap_share"] = float(np.mean([
+        if name != first:
+            rec["tokens_equal_first_share"] = float(np.mean([
                 np.mean(np.asarray(tokens[name][i])
-                        == np.asarray(tokens["overlap"][i]))
+                        == np.asarray(tokens[first][i]))
                 for i in tokens[name]]))
         log(f"{arch} stream {name}: {rec['tokens']} tokens in "
             f"{rec['seconds']:.2f} s (prefills {rec['prefill_s']:.2f} s; "
@@ -1533,7 +1630,7 @@ def stream_path(arch: str, params, cfg, ds, prompts, conts, dev,
             f" steps, retrieval {rec['retrieval']}, peak "
             f"{rec['peak_device_bytes'] / 2 ** 30:.2f} GiB, launches {n}, "
             f"corpus continuation {rec['corpus_continuation_share']:.4f}, "
-            f"equal to overlap {rec.get('tokens_equal_overlap_share')}")
+            f"equal to {first} {rec.get('tokens_equal_first_share')}")
         if rec["retrieval"]["knn_hit_rate"] < KNN_HIT_MIN:
             raise AssertionError(f"stream {name}: kNN hit rate "
                                  f"{rec['retrieval']['knn_hit_rate']}")
@@ -1552,7 +1649,7 @@ def stream_path(arch: str, params, cfg, ds, prompts, conts, dev,
                 raise AssertionError(f"stream storm: {len(schedule.fired)} "
                                      f"of {len(schedule.events)} fired")
         res[name] = rec
-    for name, same_as in (("serialized", "overlap"), ("storm", "clean")):
+    for name, same_as in (("serialized", first), ("storm", "clean")):
         if name in tokens and tokens[name] != tokens[same_as]:
             raise AssertionError(f"stream: {name} tokens differ from "
                                  f"{same_as}'s")
@@ -1650,7 +1747,9 @@ def lm_float32_check(dev, arch: str) -> dict:
     spec = LM_SPECS[arch]
     batch, prompt_len, steps = (spec["check"][k] for k in
                                 ("batch", "prompt_len", "steps"))
-    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+    full_cfg = get_arch(arch)
+    cfg = dataclasses.replace(full_cfg, dtype="float32", num_layers=spec[
+        "check"].get("num_layers", full_cfg.num_layers))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                          device=dev)
     prompt = torch.as_tensor(np.random.default_rng(7).integers(
@@ -1658,7 +1757,7 @@ def lm_float32_check(dev, arch: str) -> dict:
     before = launch_counts()
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, prompt, cfg=cfg)
-    cache = grow_cache(cache, prompt_len + steps)
+    cache = grow_cache(cache, prompt_len + steps, window=cfg.sliding_window)
     toks = [torch.argmax(logits[:, -1].float(), dim=-1)]
     step_logits = []
     for i in range(steps):
@@ -1680,12 +1779,19 @@ def lm_float32_check(dev, arch: str) -> dict:
     torch.cuda.synchronize()
     after = launch_counts()
     res = {"arch": arch, "batch": batch, "prompt_len": prompt_len,
-           "steps": steps, "max_abs_err": err,
+           "steps": steps, "num_layers": cfg.num_layers,
+           "cut": ({} if cfg.num_layers == full_cfg.num_layers else
+                   {"num_layers": f"{full_cfg.num_layers} -> "
+                                  f"{cfg.num_layers}"}),
+           "cache_rows": {g: int(c["k"].shape[2]) for g, c in cache.items()
+                          if "k" in c},
+           "max_abs_err": err,
            "prefill_max_abs_err": prefill_err, "greedy_equal": greedy_equal,
            "logit_scale": float(want.abs().max()),
            "launches": {k: after[k] - before[k] for k in after},
            "seconds": time.perf_counter() - t0}
-    log(f"{arch} float32 check: decode vs forward max abs err {err:.3g} "
+    log(f"{arch} float32 check ({cfg.num_layers} layers, caches "
+        f"{res['cache_rows']}): decode vs forward max abs err {err:.3g} "
         f"(prefill {prefill_err:.3g}, |logits| <= {res['logit_scale']:.2f})"
         f", greedy tokens equal {greedy_equal}, launches {res['launches']}")
     if spec["gate"] == "layers":
@@ -1733,6 +1839,7 @@ def lm_path(dev, arch: str) -> dict:
                                                hidden_states, interpolate,
                                                knn_probs,
                                                open_datastore_client)
+    from repro_torch.common.config import AttentionKind
     spec = LM_SPECS[arch]
     cell = spec["cell"]
     cfg = get_arch(arch)
@@ -1752,6 +1859,23 @@ def lm_path(dev, arch: str) -> dict:
     res = {"arch": arch, "dtype": cfg.dtype, "cell": cell,
            "datastore_config": DATASTORE_PYR}
     forwards = 0        # full forwards (prefills) run on this path
+    if cfg.attention_kind != AttentionKind.FULL:
+        # a prompt of n tokens fills a ring of R slots in prefill when
+        # n > R; else its decode (positions n..n + max_new - 2) wraps it
+        # when it reaches R, or never does
+        r = min(cfg.sliding_window, max_seq)
+        res["ring_wraps"] = {
+            "ring_slots": r,
+            "in_prefill": int((lengths > r).sum()),
+            "in_decode": int(((lengths <= r)
+                              & (lengths + max_new - 2 >= r)).sum()),
+            "never": int((lengths + max_new - 2 < r).sum())}
+        log(f"{arch}: prompts wrap their {r}-slot rings "
+            f"{res['ring_wraps']}")
+        if not all(res["ring_wraps"][k] for k in ("in_prefill",
+                                                  "in_decode", "never")):
+            raise AssertionError(f"{arch}: the prompts do not cover every "
+                                 f"ring case: {res['ring_wraps']}")
 
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1860,7 +1984,7 @@ def lm_path(dev, arch: str) -> dict:
 
     # 5s / 6s: the same prompts through the streaming engine; even
     # requests are corpus prefixes, whose continuation is recorded
-    conts = {i: corpus[i // 2 % corpus_seqs, n:n + STREAM_MAX_NEW]
+    conts = {i: corpus[i // 2 % corpus_seqs, n:n + STREAM_MAX_NEW[arch]]
              for i, n in enumerate(lengths) if i % 2 == 0}
     peak = torch.cuda.max_memory_allocated()
     res["stream"] = stream_path(arch, params, cfg, ds, prompts, conts, dev,
@@ -1937,6 +2061,68 @@ def lm_path(dev, arch: str) -> dict:
                              f"{cfg.num_layers} layers")
     del params, batcher, ds
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 12: sliding-window and local-global attention
+# ---------------------------------------------------------------------------
+
+PHASE12_LIMIT_S = 150.0
+
+
+def counting_plain_decode():
+    """Wrap flash-decode's plain version in its dispatch (the model's
+    decode path) so that it counts its calls on CUDA tensors: (the
+    counts, a function that restores it)."""
+    from repro_torch.kernels.decode_attention import ops
+    plain = ops.decode_attention_ref
+    calls = {"cuda": 0, "cpu": 0}
+
+    def counted(q, k, v, pos, window=0):
+        calls[k.device.type] = calls.get(k.device.type, 0) + 1
+        return plain(q, k, v, pos, window)
+
+    ops.decode_attention_ref = counted
+
+    def restore():
+        ops.decode_attention_ref = plain
+    return calls, restore
+
+
+def sliding_path(dev) -> dict:
+    """Phase 12: gemma3-12b's float32 check at depth 12 (12a), its kNN-LM
+    serving at full width in bf16 (12b, :func:`lm_path`: a datastore of
+    d = 3,840 keys, the batcher, one overlapped ``StreamEngine`` run, the
+    kNN-LM step; flash-decode 48 times a decode step), and the float32
+    checks of h2o-danube-1.8b and chatglm3-6b at depth 2 (12c). The
+    plain version of flash-decode must never run on the card; the phase
+    raises past PHASE12_LIMIT_S."""
+    import torch
+    t_phase = time.perf_counter()
+    calls, restore = counting_plain_decode()
+    res = {}
+    try:
+        res["float32_check"] = lm_float32_check(dev, "gemma3-12b")
+        res["serving"] = lm_path(dev, "gemma3-12b")
+        res["danube_float32_check"] = lm_float32_check(dev,
+                                                       "h2o-danube-1.8b")
+        res["chatglm3_float32_check"] = lm_float32_check(dev,
+                                                         "chatglm3-6b")
+    finally:
+        restore()
+    torch.cuda.empty_cache()
+    res["plain_decode_calls"] = dict(calls)
+    res["launches"] = res["serving"]["launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: launches {res['launches']}; plain flash-decode calls "
+        f"{res['plain_decode_calls']}; {res['phase_s']:.1f} s")
+    if calls.get("cuda", 0):
+        raise AssertionError(f"phase 12: flash-decode's plain version ran "
+                             f"on the card {calls['cuda']} times")
+    if res["phase_s"] > PHASE12_LIMIT_S:
+        raise AssertionError(f"phase 12 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE12_LIMIT_S:.0f} s")
     return res
 
 
@@ -3445,6 +3631,7 @@ def main() -> int:
     result["store"], result["maintenance"] = store_path(state)
     result["multi_device"] = multi_device_path(state)
     result["training"] = training_path()
+    result["lm_sliding"] = sliding_path(dev)
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -3457,7 +3644,7 @@ def main() -> int:
             "launches": sum(result[phase]["launches"][name] for phase in
                             ("main_path", "lm_path", "ssm_path",
                              "serving", "store", "maintenance",
-                             "multi_device", "training")),
+                             "multi_device", "training", "lm_sliding")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -11,7 +11,8 @@
     ``(sub-dataset, config, shard_seed(cfg.seed, i))``, so the parallel
     result equals the sequential loop. A failed shard is retried up to
     ``max_retries`` times, in-process once the pool is broken, and every
-    retry is recorded in ``build_stats["build_timeline"]``.
+    retry is recorded in ``build_stats["build_timeline"]``. The largest
+    shards go to the pool first.
   * :func:`plan_rebalance`, :func:`split_shard`, :func:`merge_shards` --
     online rebalancing, one shard split or merge a maintenance cycle.
 """
@@ -298,8 +299,11 @@ def build_subgraphs(plan: BuildPlan, *, workers: int = 0,
                 ef_construction=cfg.ef_construction,
                 seed=H.shard_seed(cfg.seed, i))
         try:
+            # largest first: a large shard that starts late would set
+            # the wall; in this order it is about the rows over the workers
+            order = sorted(range(w), key=lambda i: -len(plan.sub_ids[i]))
             futs = {pool.submit(_build_shard_payload, tasks[i]): i
-                    for i in range(w)}
+                    for i in order}
             while futs:
                 done, _ = concurrent.futures.wait(
                     futs, return_when=concurrent.futures.FIRST_COMPLETED)

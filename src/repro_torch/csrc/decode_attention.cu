@@ -6,54 +6,69 @@
 // Semantics are those of `decode_attention_ref`
 // (src/repro/kernels/decode_attention/ref.py): for every batch row b and
 // query head h = kv * G + g, softmax(q . k_s * hd^-0.5) over the cache rows
-// s = 0..pos[b], times v_s, summed in float32; the output is float32.
+// s = lo..pos[b], times v_s, summed in float32; the output is float32.
+// lo is 0, or with a window w > 0, max(0, pos[b] - w + 1): the rows a
+// full-size cache on a sliding layer holds for its token
+// (src/repro/models/attention.py, decode_attention_block). A ring cache of
+// R slots needs no window: its valid slots are 0..min(pos, R - 1), which
+// the caller passes as pos.
 //
 // What bounds it on the H100: each valid K and V row is read once and
 // used by the G query heads of its kv head, about 2 G operations per
 // byte of bf16 cache, far below the ~295 the card needs to be bound by
 // arithmetic. So the kernel is bound by the bytes of the valid cache rows
-// (rows past pos[b] are never read), and at the short caches of a
+// (rows outside lo..pos[b] are never read), and at the short caches of a
 // serving step by the latency of a round trip to device memory, of the
 // merge of partial states, and of its launch. Tensor cores are not used:
-// a kv head has G query rows (2 in qwen3-1.7b), so an `mma` of 16 rows
-// would waste 8 of every 16, and q is float32 in the reference; the G
-// rows stay in registers and the scores and the weighted sum of V are
-// float32 FMAs.
-//
-// What the previous design lost: it cut each (b, kv head)'s valid rows
-// into a count of splits chosen from the allocated cache length and the
-// SM count, each block streaming its split from device memory into
-// registers a few rows a warp at a time; a second kernel combined the
-// splits, with its scratch allocated on every call.
+// a kv head has G query rows (2 in qwen3-1.7b and gemma3-12b), so an
+// `mma` of 16 rows would waste most of them, and q is float32 in the
+// reference; the G rows stay in registers and the scores and the
+// weighted sum of V are float32 FMAs.
 //
 // Design:
-//   * the grid is (B * KV, spans): a span is `span_rows` cache rows of
-//     one (b, kv head), a whole number of tiles. A block whose span
-//     starts past pos[b] exits at once, so the work is cut by the valid
-//     rows, read on the device (no host sync). The wrapper gives each
-//     block one tile while every tile's block fits on the card at once
-//     (the CUDA occupancy API); otherwise one wave of spans of several
-//     tiles;
+//   * the grid is (B * KV * slices, spans): a span is `span_rows` cache
+//     rows of one (b, kv head), a whole number of tiles. A block whose
+//     span lies outside lo..pos[b] exits at once, so the work is cut by
+//     the valid rows, read on the device (no host sync). The wrapper
+//     gives each block one tile while every tile's block fits on the card
+//     at once (the CUDA occupancy API); otherwise one wave of spans of
+//     several tiles;
+//   * a kv head's G query heads are cut into `slices` blocks of a power
+//     of two of heads, at most 8 (4 at hd = 240), so that a lane's query
+//     and accumulator registers (2 x 8 x 8 floats at most) stay the same
+//     at G = 16 (chatglm3-6b) as at G = 8 and nothing spills; the slices
+//     of one (b, kv head) are neighbouring blocks, so the second reads
+//     the rows from L2. A block whose slice has fewer heads than its
+//     power of two (G = 3, 5 to 7, 9 to 15) carries zero query rows for
+//     the rest and writes none of them: one build of 1, 2, 4 and 8 heads
+//     serves every G from 1 to 16;
 //   * a whole tile is in flight before its first score: a tile is one
 //     pass of the block, 8 warps x R rows x U loads (64 bf16 rows of hd =
 //     128 at G <= 4, 32 KB of K and V), and every lane group issues the
 //     16-byte loads of its U rows into registers before it scores any;
 //     a span of several tiles streams them pass after pass;
-//   * a cache row is read by L = hd * sizeof(T) / 16 neighbouring lanes,
-//     each holding E = 16 / sizeof(T) elements of the G query rows in
-//     registers; the dot product is finished by xor-shuffles inside the
-//     lane group, and each lane group keeps its own running (max, sum,
-//     acc[G][E]), so a block needs no barrier until its rows are done; the
-//     lane groups then merge by shuffles, the warps through shared memory
-//     with one weight exp(m_w - max) for each warp and query row;
-//   * one launch: a (b, kv head) with one valid span writes its output
-//     directly. Otherwise each span writes its partial (max, sum,
+//   * a cache row is hd * sizeof(T) / 16 pieces of 16 bytes (E = 16 /
+//     sizeof(T) elements each), read by L neighbouring lanes, a power of
+//     two: at hd = 16 to 128 one piece a lane, as many lanes as pieces; at
+//     hd = 80 and 240 the lanes round up to the next power of two (10
+//     bf16 pieces on 16 lanes, 30 on 32, 20 float32 pieces on 32) and the
+//     idle lanes hold zeros; at hd = 240 in float32 (60 pieces) a lane
+//     holds two, pieces sub and sub + 32, so that each load instruction
+//     still reads neighbouring addresses. Each lane keeps E (or 2E)
+//     elements of the G query rows; the dot product is finished by
+//     xor-shuffles inside the lane group, and each lane group keeps its
+//     own running (max, sum, acc[G][.]), so a block needs no barrier
+//     until its rows are done; the lane groups then merge by shuffles,
+//     the warps through shared memory with one weight exp(m_w - max) for
+//     each warp and query row;
+//   * one launch: a (b, kv head, slice) with one valid span writes its
+//     output directly. Otherwise each span writes its partial (max, sum,
 //     acc[G][hd]) to a workspace, and the last span to finish, found by a
-//     per-(b, kv head) counter behind __threadfence(), merges the partials
-//     in span order (so the output is the same bit for bit from run to
-//     run), writes the output and resets the counter to 0 for the next
-//     call. The workspace and the counters are kept by the wrapper from
-//     call to call; the counters are zeroed once, when allocated.
+//     per-(b, kv head, slice) counter behind __threadfence(), merges the
+//     partials in span order (so the output is the same bit for bit from
+//     run to run), writes the output and resets the counter to 0 for the
+//     next call. The workspace and the counters are kept by the wrapper
+//     from call to call; the counters are zeroed once, when allocated.
 //   * tiles staged in shared memory (16-byte cp.async, two to six stages;
 //     and, separately, TMA bulk copies of one row each) measured slower
 //     at every shape of chip_smoke.py's phase 2: the copies add a
@@ -74,6 +89,13 @@ constexpr unsigned kFull = 0xffffffffu;
 // a (b, kv head)'s spans: at most this many, their weights in shared
 // memory during the merge
 constexpr int kMaxSpans = 256;
+// query heads a block takes: the lane's registers hold G x E (or 2E)
+// query elements and as many accumulators; at hd = 240 the warps' states
+// (kWarps x G x (hd + 2) floats) must also fit the 48 KB of static shared
+// memory
+__host__ __device__ constexpr int max_groups(int hd) {
+  return hd > 128 ? 4 : 8;
+}
 
 #ifdef DECODE_PROFILE
 // profiling builds: for each of the first kProfBlocks blocks, the global
@@ -98,12 +120,14 @@ struct Params {
   const float* q;     // [B, H, hd] float32
   const void* k;      // [B, S, KV, hd] float32 or bfloat16, contiguous
   const void* v;      // [B, S, KV, hd]
-  const int* pos;     // [B]: rows 0..pos[b] are valid
+  const int* pos;     // [B]: rows lo..pos[b] are valid
   float* out;         // [B, H, hd]
-  float* part;        // acc [B * KV, spans, G, hd], then (m, l) [.., G, 2]
-  int* counters;      // [B * KV], 0 between calls
+  float* part;        // acc [B * KV * slices, spans, G, hd], then (m, l)
+  int* counters;      // [B * KV * slices], 0 between calls
   int B, S, H, KV;
   int span_rows, spans;  // blocks over one (b, kv head), rows each
+  int slices;            // blocks over one kv head's query heads
+  int window;            // 0: none; else rows > pos - window only
   float scale;
 };
 
@@ -111,14 +135,28 @@ template <typename T> struct Row16;
 template <> struct Row16<float> { static constexpr int kElems = 4; };
 template <> struct Row16<uint16_t> { static constexpr int kElems = 8; };
 
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+// a row's lanes: `pieces` 16-byte pieces a lane, `lanes` a power of two
+// (at least 2) with lanes * pieces >= the row's pieces
+template <typename T, int HD> struct Lanes {
+  static constexpr int kElems = Row16<T>::kElems;
+  static constexpr int kRowPieces = HD / kElems;
+  static constexpr int kPieces = (kRowPieces + 31) / 32;
+  static constexpr int kNeeded = (kRowPieces + kPieces - 1) / kPieces;
+  static constexpr int kLanes = kNeeded <= 2    ? 2
+                                : kNeeded <= 4  ? 4
+                                : kNeeded <= 8  ? 8
+                                : kNeeded <= 16 ? 16
+                                                : 32;
+};
+
+__device__ __forceinline__ void unpack(const uint4& r, float* f, float) {
   f[0] = __uint_as_float(r.x);
   f[1] = __uint_as_float(r.y);
   f[2] = __uint_as_float(r.z);
   f[3] = __uint_as_float(r.w);
 }
 
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+__device__ __forceinline__ void unpack(const uint4& r, float* f, uint16_t) {
   const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -148,12 +186,17 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Params p) {
-  constexpr int E = Row16<T>::kElems;   // elements of a 16-byte piece
-  constexpr int L = HD / E;             // lanes (pieces) of a cache row
+  using Lay = Lanes<T, HD>;
+  constexpr int E = Lay::kElems;        // elements of a 16-byte piece
+  constexpr int NP = Lay::kRowPieces;   // pieces of a cache row
+  constexpr int P = Lay::kPieces;       // pieces a lane holds
+  constexpr int L = Lay::kLanes;        // lanes of a cache row
   constexpr int R = 32 / L;             // rows a warp reads at once
-  constexpr int U = G <= 4 ? 4 : 2;     // row loads of a lane in flight
-  static_assert(HD % E == 0 && L >= 2 && L <= 32 && 32 % L == 0,
+  constexpr int PE = P * E;             // elements a lane holds
+  constexpr int U = (G <= 4 ? 4 : 2) / P;  // row loads of a lane in flight
+  static_assert(HD % E == 0 && L * P >= NP && P <= 2 && U >= 1,
                 "unsupported head_dim");
+  static_assert(G <= max_groups(HD), "too many query heads for a block");
 
   // the warps' states (acc [kWarps][G][HD], then max and sum
   // [kWarps][G][2]); in the merge, the spans' weights [spans][G][2]
@@ -164,88 +207,115 @@ flash_decode_kernel(const Params p) {
   __shared__ float s_mx[G], s_den[G];
   __shared__ int s_last;
 
-  const int bk = blockIdx.x, span = blockIdx.y;
+  // unit: one (b, kv head, slice of its query heads)
+  const int unit = blockIdx.x, span = blockIdx.y;
+  const int bk = unit / p.slices, slice = unit - bk * p.slices;
   const int b = bk / p.KV, kv = bk - b * p.KV;
+  const int heads = p.H / p.KV;                   // G of the model
+  const int g0 = slice * G;                       // first head of the slice
+  const int gn = min(G, heads - g0);              // heads of the slice
 #ifdef DECODE_PROFILE
-  const size_t prof_slot = (size_t)span * gridDim.x + bk;
+  const size_t prof_slot = (size_t)span * gridDim.x + unit;
 #endif
   STAMP(0);
 
-  // this block's rows: span `span` of the valid rows 0..pos[b]; span 0
-  // always runs, so that a row with no valid cache row still gets its
+  // the valid rows lo..hi-1, the spans they touch, and this block's rows;
+  // with no valid row, span 0 alone runs, so that the row still gets its
   // (zero) output
-  const int n_valid = min(max(p.pos[b] + 1, 0), p.S);
+  const int pb = p.pos[b];
+  const int hi = min(max(pb + 1, 0), p.S);
+  const int lo = p.window > 0 ? max(pb - p.window + 1, 0) : 0;
   const int span_rows = p.span_rows;
-  const int start = span * span_rows;
-  if (span > 0 && start >= n_valid) return;
-  const int end = min(start + span_rows, n_valid);
-  const int n_spans = max(1, (n_valid + span_rows - 1) / span_rows);
+  int first = 0, n_spans = 1, start = 0, end = 0;
+  if (hi > lo) {
+    first = lo / span_rows;
+    n_spans = (hi - 1) / span_rows - first + 1;
+    if (span < first || span >= first + n_spans) return;
+    start = max(span * span_rows, lo);
+    end = min(span * span_rows + span_rows, hi);
+  } else if (span > 0) {
+    return;
+  }
 
   const size_t row = (size_t)p.KV * HD;   // elements from row s to s + 1
   const size_t base = ((size_t)b * p.S * p.KV + kv) * HD;
   const T* kb = static_cast<const T*>(p.k) + base;
   const T* vb = static_cast<const T*>(p.v) + base;
 
-  // the G query rows of this kv head, E elements a lane, in registers
+  // the slice's query rows of this kv head, pieces sub and sub + L of
+  // each in a lane's registers (zeros for idle lanes and missing heads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane % L, grp = lane / L;
-  float q[G][E];
-  const float* qb = p.q + ((size_t)b * p.H + (size_t)kv * G) * HD + sub * E;
+  float q[G][PE];
+  const float* qb = p.q + ((size_t)b * p.H + (size_t)kv * heads + g0) * HD;
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < E; ++e) q[g][e] = qb[g * HD + e];
+    for (int j = 0; j < P; ++j) {
+      const int piece = sub + j * L;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        q[g][j * E + e] = g < gn && piece < NP
+                              ? qb[(size_t)g * HD + piece * E + e]
+                              : 0.f;
+    }
 
   // each lane group's running (max, sum, acc)
-  float m[G], l[G], acc[G][E];
+  float m[G], l[G], acc[G][PE];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < PE; ++e) acc[g][e] = 0.f;
   }
 
   // a pass of the block reads kWarps * R * U rows (a tile: 32 KB of K
-  // and V at G <= 4): each lane group issues its U rows of the pass
-  // before it scores the first. The loop bound depends on the warp only,
-  // so every lane of a warp takes part in the shuffles.
+  // and V at G <= 4 and hd <= 128): each lane group issues its U rows of
+  // the pass before it scores the first. The loop bound depends on the
+  // warp only, so every lane of a warp takes part in the shuffles.
   for (int r0 = start + warp * R; r0 < end; r0 += kWarps * R * U) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][P], vr[U][P];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = r0 + u * kWarps * R + grp;
       ok[u] = r < end;
-      if (ok[u]) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)r * row +
-                                                     sub * E));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)r * row +
-                                                     sub * E));
-      } else {
-        kr[u] = make_uint4(0u, 0u, 0u, 0u);
-        vr[u] = kr[u];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int piece = sub + j * L;
+        if (ok[u] && piece < NP) {
+          const size_t o = (size_t)r * row + piece * E;
+          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(kb + o));
+          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(vb + o));
+        } else {
+          kr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+          vr[u][j] = kr[u][j];
+        }
       }
     }
     float sc[U][G];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[E];
-      unpack(kr[u], kf);
+      float kf[PE];
+#pragma unroll
+      for (int j = 0; j < P; ++j) unpack(kr[u][j], kf + j * E, T());
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < E; ++e) d = fmaf(q[g][e], kf[e], d);
+        for (int e = 0; e < PE; ++e) d = fmaf(q[g][e], kf[e], d);
 #pragma unroll
         for (int off = L / 2; off > 0; off >>= 1)
           d += __shfl_xor_sync(kFull, d, off);
         sc[u][g] = ok[u] ? d * p.scale : -INFINITY;
       }
     }
-    float vf[U][E];
+    float vf[U][PE];
 #pragma unroll
-    for (int u = 0; u < U; ++u) unpack(vr[u], vf[u]);
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < P; ++j) unpack(vr[u][j], vf[u] + j * E, T());
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float mx = m[g];
@@ -255,13 +325,13 @@ flash_decode_kernel(const Params p) {
       const float c = rescale(m[g], mx);
       l[g] *= c;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= c;
+      for (int e = 0; e < PE; ++e) acc[g][e] *= c;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float pr = expf(sc[u][g] - mx);   // 0 for an invalid row
         l[g] += pr;
 #pragma unroll
-        for (int e = 0; e < E; ++e)
+        for (int e = 0; e < PE; ++e)
           acc[g][e] = fmaf(pr, vf[u][e], acc[g][e]);
       }
       m[g] = mx;
@@ -275,12 +345,12 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float mo = __shfl_xor_sync(kFull, m[g], off);
-      const float lo = __shfl_xor_sync(kFull, l[g], off);
+      const float lo_ = __shfl_xor_sync(kFull, l[g], off);
       const float mx = fmaxf(m[g], mo);
       const float ca = rescale(m[g], mx), cb = rescale(mo, mx);
-      l[g] = l[g] * ca + lo * cb;
+      l[g] = l[g] * ca + lo_ * cb;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
+      for (int e = 0; e < PE; ++e) {
         const float ao = __shfl_xor_sync(kFull, acc[g][e], off);
         acc[g][e] = acc[g][e] * ca + ao * cb;
       }
@@ -294,8 +364,14 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        s_acc[(warp * G + g) * HD + sub * E + e] = acc[g][e];
+      for (int j = 0; j < P; ++j) {
+        const int piece = sub + j * L;
+        if (piece < NP) {
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            s_acc[(warp * G + g) * HD + piece * E + e] = acc[g][j * E + e];
+        }
+      }
       if (sub == 0) {
         s_ml[2 * (warp * G + g)] = m[g];
         s_ml[2 * (warp * G + g) + 1] = l[g];
@@ -322,10 +398,11 @@ flash_decode_kernel(const Params p) {
   __syncthreads();
 
   // merge the warps; write the output, or this span's partial state
-  const size_t groups = (size_t)p.B * p.KV;
+  const size_t units = (size_t)p.B * p.KV * p.slices;
   float* part_acc = p.part;
-  float* part_ml = p.part + groups * p.spans * G * HD;
-  const size_t slot = (size_t)bk * p.spans + span;
+  float* part_ml = p.part + units * p.spans * G * HD;
+  const size_t slot = (size_t)unit * p.spans + span;
+  float* outb = p.out + ((size_t)b * p.H + (size_t)kv * heads + g0) * HD;
   for (int i = threadIdx.x; i < G * HD; i += kThreads) {
     const int g = i / HD, d = i - g * HD;
     float num = 0.f;
@@ -334,8 +411,7 @@ flash_decode_kernel(const Params p) {
       num += s_ml[2 * (w * G + g)] * s_acc[(w * G + g) * HD + d];
     const float mx = s_mx[g], den = s_den[g];
     if (n_spans == 1) {
-      p.out[((size_t)b * p.H + (size_t)kv * G + g) * HD + d] =
-          num / fmaxf(den, 1e-30f);
+      if (g < gn) outb[i] = num / fmaxf(den, 1e-30f);
     } else {
       const size_t o = slot * G + g;
       part_acc[o * HD + d] = num;
@@ -348,17 +424,17 @@ flash_decode_kernel(const Params p) {
   STAMP(2);
   if (n_spans == 1) return;
 
-  // the last span of this (b, kv head) to finish merges all of them
+  // the last span of this unit to finish merges all of them
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
-    s_last = atomicAdd(p.counters + bk, 1) == n_spans - 1;
+    s_last = atomicAdd(p.counters + unit, 1) == n_spans - 1;
   __syncthreads();
   STAMP(3);
   if (!s_last) return;
   __threadfence();
-  if (threadIdx.x == 0) p.counters[bk] = 0;
-  const size_t first = (size_t)bk * p.spans;
+  if (threadIdx.x == 0) p.counters[unit] = 0;
+  const size_t first_slot = (size_t)unit * p.spans + first;
   // the spans' (max, sum) into shared memory at once, while each thread
   // loads its first kPre partial sums; then each query row's weights
   // exp(m_j - max) in place and its total sum; the partials are summed
@@ -372,12 +448,12 @@ flash_decode_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < kPre; ++j)
       pre[u][j] = i < G * HD && j < n_spans
-                      ? __ldcg(part_acc + (first + j) * G * HD + i)
+                      ? __ldcg(part_acc + (first_slot + j) * G * HD + i)
                       : 0.f;
   }
   float* s_w = s_area;                                // [n_spans][G][2]
   for (int i = threadIdx.x; i < 2 * n_spans * G; i += kThreads)
-    s_w[i] = __ldcg(part_ml + 2 * first * G + i);
+    s_w[i] = __ldcg(part_ml + 2 * first_slot * G + i);
   __syncthreads();
   for (int g = warp; g < G; g += kWarps) {
     float mx = -INFINITY;
@@ -398,8 +474,8 @@ flash_decode_kernel(const Params p) {
   for (int u = 0; u < kPer; ++u) {
     const int i = threadIdx.x + u * kThreads;
     if (i >= G * HD) break;
-    const int g = i / HD, d = i - g * HD;
-    const float* pa = part_acc + first * G * HD + i;
+    const int g = i / HD;
+    const float* pa = part_acc + first_slot * G * HD + i;
     float num = 0.f;
 #pragma unroll
     for (int j = 0; j < kPre; ++j)
@@ -417,59 +493,85 @@ flash_decode_kernel(const Params p) {
     }
     for (; j < n_spans; ++j)
       num += s_w[2 * (j * G + g)] * __ldcg(pa + (size_t)j * G * HD);
-    p.out[((size_t)b * p.H + (size_t)kv * G + g) * HD + d] =
-        num / fmaxf(s_den[g], 1e-30f);
+    if (g < gn) outb[i] = num / fmaxf(s_den[g], 1e-30f);
   }
   STAMP(4);
 }
 
-// blocks an SM holds at once
+// what a call of the templates below does: launch the kernel, ask the
+// occupancy API for the blocks an SM holds, or report the layout
+enum class Op { kLaunch, kOccupancy, kLayout };
+
+// a launch: the CUDA error (0 on success); occupancy: the blocks an SM
+// holds at once; layout: writes the row's lanes and the pieces a lane
+// holds to out[0], out[1]
 template <typename T, int HD, int G>
-long long run(const Params& p, bool occupancy, cudaStream_t st) {
-  if (occupancy) {
+long long run(const Params& p, Op op, cudaStream_t st, int* out) {
+  if (op == Op::kLayout) {
+    out[0] = Lanes<T, HD>::kLanes;
+    out[1] = Lanes<T, HD>::kPieces;
+    return 0;
+  }
+  if (op == Op::kOccupancy) {
     int blocks = 0;
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, flash_decode_kernel<T, HD, G>, kThreads, 0);
     return err != cudaSuccess ? -(long long)err : blocks;
   }
-  const dim3 grid(p.B * p.KV, p.spans);
+  const dim3 grid(p.B * p.KV * p.slices, p.spans);
   flash_decode_kernel<T, HD, G><<<grid, kThreads, 0, st>>>(p);
   return (long long)cudaGetLastError();
 }
 
+// G: the heads of one block, a power of two
 template <typename T, int HD>
-long long by_groups(const Params& p, int G, bool occ, cudaStream_t st) {
+long long by_groups(const Params& p, int G, Op op, cudaStream_t st,
+                    int* out) {
+  if (G > max_groups(HD)) return -1;
   switch (G) {
-    case 1: return run<T, HD, 1>(p, occ, st);
-    case 2: return run<T, HD, 2>(p, occ, st);
-    case 3: return run<T, HD, 3>(p, occ, st);
-    case 4: return run<T, HD, 4>(p, occ, st);
-    case 5: return run<T, HD, 5>(p, occ, st);
-    case 6: return run<T, HD, 6>(p, occ, st);
-    case 7: return run<T, HD, 7>(p, occ, st);
-    case 8: return run<T, HD, 8>(p, occ, st);
+    case 1: return run<T, HD, 1>(p, op, st, out);
+    case 2: return run<T, HD, 2>(p, op, st, out);
+    case 4: return run<T, HD, 4>(p, op, st, out);
+  }
+  if constexpr (max_groups(HD) > 4) {
+    if (G == 8) return run<T, HD, 8>(p, op, st, out);
   }
   return -1;
 }
 
 template <typename T>
-long long by_head_dim(const Params& p, int hd, int G, bool occ,
-                      cudaStream_t st) {
+long long by_head_dim(const Params& p, int hd, int G, Op op,
+                      cudaStream_t st, int* out) {
   switch (hd) {
-    case 16: return by_groups<T, 16>(p, G, occ, st);
-    case 32: return by_groups<T, 32>(p, G, occ, st);
-    case 64: return by_groups<T, 64>(p, G, occ, st);
-    case 128: return by_groups<T, 128>(p, G, occ, st);
+    case 16: return by_groups<T, 16>(p, G, op, st, out);
+    case 32: return by_groups<T, 32>(p, G, op, st, out);
+    case 64: return by_groups<T, 64>(p, G, op, st, out);
+    case 80: return by_groups<T, 80>(p, G, op, st, out);
+    case 128: return by_groups<T, 128>(p, G, op, st, out);
+    case 240: return by_groups<T, 240>(p, G, op, st, out);
   }
   return -1;
 }
 
-long long dispatch(const Params& p, int hd, int bf16, bool occ,
-                   cudaStream_t st) {
-  if (p.KV <= 0 || p.H % p.KV != 0) return -1;
-  const int G = p.H / p.KV;
-  return bf16 ? by_head_dim<uint16_t>(p, hd, G, occ, st)
-              : by_head_dim<float>(p, hd, G, occ, st);
+// The kv head's H / KV query heads cut into p.slices blocks of G heads:
+// as few blocks as max_groups(hd) allows, G the least power of two that
+// covers the heads in them. Fills p.slices (and, for the layout, out[2]
+// and out[3]), then calls the instantiation for (T, hd, G); -1 for a
+// shape it is not built for.
+long long dispatch(Params& p, int hd, int bf16, Op op, cudaStream_t st,
+                   int* out) {
+  if (p.KV <= 0 || p.H <= 0 || p.H % p.KV != 0 || hd <= 0) return -1;
+  const int heads = p.H / p.KV;
+  const int cap = max_groups(hd);
+  p.slices = (heads + cap - 1) / cap;
+  int G = 1;
+  while (G * p.slices < heads) G *= 2;
+  if (op == Op::kLayout) {
+    out[2] = p.slices;
+    out[3] = G;
+  }
+  return bf16 ? by_head_dim<uint16_t>(p, hd, G, op, st, out)
+              : by_head_dim<float>(p, hd, G, op, st, out);
 }
 
 }  // namespace
@@ -478,30 +580,42 @@ extern "C" {
 
 // Returns a cudaError_t code (0 on success), or -1 for a head_dim, group
 // count or plan the kernel is not built for. Launches on `stream` and
-// does not synchronise. `part` holds at least B * KV * spans * G *
-// (hd + 2) floats (unused when spans == 1) and `counters` B * KV ints
-// that are 0 (the kernel leaves them 0). `spans` blocks of `span_rows`
-// rows each cover the cache (spans * span_rows >= S), spans <= 256.
+// does not synchronise. `part` holds at least B * KV * slices * spans *
+// G * (hd + 2) floats (unused when spans == 1) and `counters` B * KV *
+// slices ints that are 0 (the kernel leaves them 0), slices and G as
+// flash_decode_layout gives them. `spans` blocks of `span_rows` rows each
+// cover the cache (spans * span_rows >= S), spans <= 256. `window` > 0
+// keeps only the rows > pos - window.
 int flash_decode_launch(const float* q, const void* k, const void* v,
                         const int* pos, float* out, float* part,
                         int* counters, int B, int S, int H, int KV, int hd,
-                        int bf16, int span_rows, int spans, void* stream) {
-  if (spans < 1 || spans > kMaxSpans || span_rows < 1 ||
+                        int bf16, int span_rows, int spans, int window,
+                        void* stream) {
+  if (spans < 1 || spans > kMaxSpans || span_rows < 1 || window < 0 ||
       (long long)spans * span_rows < S)
     return -1;
-  const Params p{q, k, v, pos, out, part, counters, B, S, H, KV,
-                 span_rows, spans, 1.0f / sqrtf((float)hd)};
-  const long long r = dispatch(p, hd, bf16, false,
-                               static_cast<cudaStream_t>(stream));
-  return (int)r;
+  Params p{q, k, v, pos, out, part, counters, B, S, H, KV,
+           span_rows, spans, 0, window, 1.0f / sqrtf((float)hd)};
+  return (int)dispatch(p, hd, bf16, Op::kLaunch,
+                       static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // The blocks an SM holds at once (the CUDA occupancy API), negative for
 // what the kernel does not take.
 int flash_decode_blocks_per_sm(int H, int KV, int hd, int bf16) {
-  const Params p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, 0, 0, H, KV, 1, 1, 1.f};
-  return (int)dispatch(p, hd, bf16, true, nullptr);
+  Params p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+           nullptr, 0, 0, H, KV, 1, 1, 0, 0, 1.f};
+  return (int)dispatch(p, hd, bf16, Op::kOccupancy, nullptr, nullptr);
+}
+
+// The kernel's layout at (H, KV, hd, bf16): writes the lanes that read a
+// cache row, the 16-byte pieces a lane holds, the blocks over a kv head's
+// query heads (slices) and the heads a block holds (G) to out[0..3];
+// returns -1 for a shape the kernel is not built for.
+int flash_decode_layout(int H, int KV, int hd, int bf16, int* out) {
+  Params p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+           nullptr, 0, 0, H, KV, 1, 1, 0, 0, 1.f};
+  return (int)dispatch(p, hd, bf16, Op::kLayout, nullptr, out);
 }
 
 #ifdef DECODE_PROFILE

@@ -150,7 +150,8 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
             with span("serve.prefill", batch=args.batch,
                       prompt_len=args.prompt_len):
                 logits, cache = prefill_step(params, prompt, cfg=cfg)
-                cache = grow_cache(cache, args.prompt_len + args.tokens)
+                cache = grow_cache(cache, args.prompt_len + args.tokens,
+                                   window=cfg.sliding_window)
             log.info("[serve] prefill %s in %.2fs", tuple(prompt.shape),
                      time.time() - t0)
 

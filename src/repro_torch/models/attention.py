@@ -7,10 +7,13 @@ whole key row, so the softmax per chunk is exact. Decode attends one
 token against the cache through the flash-decode kernel, which reads the
 layer's cache slice in place.
 
-Sliding-window layers (gemma3, h2o-danube, chatglm-style) and the ring
-caches they keep in the reference are not ported yet (ROADMAP.md,
-section 1: ring and sliding-window caches); they raise
-``NotImplementedError``.
+Sliding-window layers (h2o-danube, and the local layers of gemma3's
+local-global stack) attend to the last ``window`` positions. In decode
+they keep a ring cache of R <= window slots, slot i holding the newest
+position p with p % R == i (``ring_pack`` lays a prefill out so); the
+kernel reads its valid slots 0..min(pos, R - 1) in any order, since the
+softmax does not care. A full-size cache on a sliding layer is read with
+the window's lower bound.
 """
 from __future__ import annotations
 
@@ -23,11 +26,6 @@ from repro_torch.common.config import ArchConfig, AttentionKind
 from repro_torch.kernels.decode_attention.ops import flash_decode
 from repro_torch.models import layers as L
 from repro_torch.models.rope import apply_rope
-
-SLIDING_TODO = ("sliding-window attention and its ring KV caches are not "
-                "ported yet (ROADMAP.md section 1: ring and sliding-window "
-                "caches)")
-
 
 @dataclasses.dataclass(frozen=True)
 class AttnSpec:
@@ -75,9 +73,11 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, chunk: int = 1024
-                              ) -> torch.Tensor:
-    """Exact causal attention, one query chunk at a time. q: [B, S, H, hd];
+                              v: torch.Tensor, *,
+                              window: Optional[int] = None,
+                              chunk: int = 1024) -> torch.Tensor:
+    """Exact causal attention (with ``window``, over the last ``window``
+    positions only), one query chunk at a time. q: [B, S, H, hd];
     k, v: [B, S, KV, hd]. Returns [B, S, H, hd]."""
     b, s, h, hd = q.shape
     groups = h // k.shape[2]
@@ -93,6 +93,8 @@ def _chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
         qpos = torch.arange(start, start + qi.shape[1], device=q.device)
         logits = torch.einsum("bchd,bshd->bhcs", qi, k) * scale
         mask = qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
         bias = torch.zeros(mask.shape, dtype=torch.float32,
                            device=q.device).masked_fill_(~mask, -1e30)
         probs = torch.softmax(logits.float() + bias, dim=-1).to(v.dtype)
@@ -108,11 +110,10 @@ def attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     x: [B, S, D] -> (out [B, S, D], k [B, S, KV, hd], v [B, S, KV, hd]);
     k and v are returned so that prefill can fill the decode cache.
     """
-    if spec.is_sliding:
-        raise NotImplementedError(SLIDING_TODO)
     b, s, d = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _chunked_causal_attention(q, k, v, chunk=q_chunk)
+    window = spec.window if spec.is_sliding else None
+    out = _chunked_causal_attention(q, k, v, window=window, chunk=q_chunk)
     return out.reshape(b, s, -1) @ p["w_o"], k, v
 
 
@@ -125,21 +126,45 @@ def decode_attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor,
     contiguous slice of the stacked cache); pos [B] is the position of
     this token (rows 0..pos-1 hold the context).
 
+    A sliding layer's cache of S <= window slots is a ring: the token
+    goes to slot pos % S, and the valid slots are 0..min(pos, S - 1). A
+    larger cache on a sliding layer holds position p at row p, and only
+    the rows after pos - window are read.
+
     Unlike the reference, which returns new caches, this writes k and v
-    at ``pos`` into the caches in place and returns them as they are:
+    into the caches in place and returns them as they are:
     (out [B, 1, D], k_cache, v_cache). The attention is the flash-decode
     kernel on a CUDA cache and its plain version on a CPU cache.
     """
-    if spec.is_sliding:
-        raise NotImplementedError(SLIDING_TODO)
     b, _, d = x.shape
+    s_cache = k_cache.shape[1]
     q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    is_ring = spec.is_sliding and s_cache <= spec.window
+    write_pos = pos % s_cache if is_ring else pos
     rows = torch.arange(b, device=x.device)
-    k_cache[rows, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, pos] = v[:, 0].to(v_cache.dtype)
-    out = flash_decode(q[:, 0], k_cache, v_cache, pos)     # [B, H, hd] f32
+    k_cache[rows, write_pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, write_pos] = v[:, 0].to(v_cache.dtype)
+    if is_ring:         # out: [B, H, hd] float32
+        out = flash_decode(q[:, 0], k_cache, v_cache,
+                           pos.clamp(max=s_cache - 1))
+    else:
+        out = flash_decode(q[:, 0], k_cache, v_cache, pos,
+                           spec.window if spec.is_sliding else 0)
     y = out.to(x.dtype).reshape(b, 1, -1) @ p["w_o"]
     return y, k_cache, v_cache
+
+
+def ring_pack(kv: torch.Tensor, window: int, seq_axis: int = 1
+              ) -> torch.Tensor:
+    """Pack full-sequence prefill kv into ring layout (slot = pos mod R).
+
+    kv: [..., S, ...]; returns the last R = min(window, S) positions rolled
+    so slot i holds the position with p % R == i.
+    """
+    s = kv.shape[seq_axis]
+    r = min(window, s)
+    tail = kv.narrow(seq_axis, s - r, r)
+    return torch.roll(tail, shifts=(s - r) % r, dims=seq_axis)
 
 
 def layer_attn_spec(cfg: ArchConfig, layer_idx: int) -> AttnSpec:

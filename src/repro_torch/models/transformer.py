@@ -7,12 +7,13 @@ layers with the same (parameter group, static behaviour). Each group's
 parameters are stacked on a leading layer axis, and a segment runs as a
 Python loop over its layers (the reference's ``lax.scan``).
 
-Ported: the ``attention`` group with full attention, dense MLPs, the
-decode cache and prefill; the ``mamba2`` group (Mamba2 blocks, whose
-prefill runs the SSD kernel) with its recurrent decode state. Not ported
-yet (ROADMAP.md, section 1): the ``shared_attention`` group (zamba2),
-MoE MLPs, and the ring caches of sliding-window layers; each raises
-``NotImplementedError``. Remat is per-layer (or per-segment)
+Ported: the ``attention`` group with full, sliding-window and
+local-global attention, dense MLPs, the decode caches (a sliding layer's
+in a ring of at most ``window`` slots, cache group ``attention@swa``)
+and prefill; the ``mamba2`` group (Mamba2 blocks, whose prefill runs the
+SSD kernel) with its recurrent decode state. Not ported yet (ROADMAP.md,
+section 1): the ``shared_attention`` group (zamba2) and MoE MLPs; each
+raises ``NotImplementedError``. Remat is per-layer (or per-segment)
 ``torch.utils.checkpoint``; mesh sharding of the activations is not
 ported (the train step runs at world size 1).
 """
@@ -28,11 +29,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ArchConfig, BlockKind
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.attention import (SLIDING_TODO, AttnSpec,
-                                          attention_block,
+from repro_torch.models.attention import (AttnSpec, attention_block,
                                           decode_attention_block,
                                           init_attention_params,
-                                          layer_attn_spec)
+                                          layer_attn_spec, ring_pack)
 from repro_torch.models.ssm import init_mamba2_params, init_ssm_state, \
     mamba2_block
 
@@ -165,7 +165,10 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 def make_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
                device: DeviceLike = "cuda") -> dict:
     """Zeroed decode caches per cache group: ``{"attention": {"k", "v"}}``
-    of [layers, batch, max_seq, KV, hd] in the model's dtype, and
+    of [layers, batch, max_seq, KV, hd] in the model's dtype, rings of
+    min(window, max_seq) rows for sliding layers (``"attention@swa"``: a
+    gemma3 keeps 1,024-slot rings for its 40 local layers and full caches
+    only for the 8 global ones), and
     ``{"mamba2": {"ssm", "conv"}}`` of [layers, batch, H, N, P] float32
     and [layers, batch, W-1, d_inner] in the model's dtype. One layer's
     slice (``cache["attention"]["k"][i]``) is contiguous, and decode
@@ -182,27 +185,30 @@ def make_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
             cache[g] = {name: st.new_zeros((slots,) + st.shape)
                         for name, st in zip(("ssm", "conv"), states)}
             continue
-        if g.endswith("@swa"):
-            raise NotImplementedError(SLIDING_TODO)
-        cache[g] = {name: torch.zeros((slots, batch, max_seq, kvh, hd),
+        seq = min(cfg.sliding_window, max_seq) if g.endswith("@swa") \
+            else max_seq
+        cache[g] = {name: torch.zeros((slots, batch, seq, kvh, hd),
                                       dtype=dtype, device=dev)
                     for name in ("k", "v")}
     return cache
 
 
-def grow_cache(cache: dict, max_seq: int) -> dict:
+def grow_cache(cache: dict, max_seq: int, window: int = 0) -> dict:
     """Pad the kv seq dim of a prefill-built cache with zeros to
     ``max_seq``; the Mamba2 states have no seq dim and stay as they
-    are."""
+    are. Ring (``@swa``) groups grow only to min(window, max_seq), and not
+    at all without a ``window``; padding a ring that prefilled fewer than
+    ``window`` positions keeps slot i == position i."""
     out = {}
     for g, sub in cache.items():
         if g == "mamba2":
             out[g] = sub
             continue
+        target = max_seq
         if g.endswith("@swa"):
-            raise NotImplementedError(SLIDING_TODO)
-        out[g] = {name: a if a.shape[2] >= max_seq else
-                  F.pad(a, (0, 0, 0, 0, 0, max_seq - a.shape[2]))
+            target = min(window, max_seq) if window else sub["k"].shape[2]
+        out[g] = {name: a if a.shape[2] >= target else
+                  F.pad(a, (0, 0, 0, 0, 0, target - a.shape[2]))
                   for name, a in sub.items()}
     return out
 
@@ -291,8 +297,9 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
       aux, None).
     Prefill: as train with build_cache=True -> the third output is a
       cache whose kv seq dim covers the prefill length (pad it with
-      ``grow_cache`` before decoding) and, for Mamba2 layers, the final
-      SSM and conv states.
+      ``grow_cache`` before decoding), its ring groups packed by
+      ``ring_pack`` to the last min(window, S) positions, and, for
+      Mamba2 layers, the final SSM and conv states.
     Decode: inputs [B, 1], cache from ``make_cache``, decode_pos [B] ->
       (logits [B, 1, V], aux, cache), the cache updated in place.
     skip_head=True returns the final-norm hidden states [B, S, D] in
@@ -332,6 +339,9 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
                     p, cfg, x, positions, seg.spec, kv=state,
                     pos=decode_pos, build_cache=build_cache)
             if build_cache:
+                if seg.cache_group.endswith("@swa"):
+                    new_state = {name: ring_pack(a, cfg.sliding_window)
+                                 for name, a in new_state.items()}
                 new_states.setdefault(seg.cache_group, []).append(new_state)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

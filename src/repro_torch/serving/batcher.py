@@ -93,7 +93,8 @@ class ContinuousBatcher:
                                  device=self.device)
         logits, _, pcache = forward(self.params, self.cfg, prompt,
                                     build_cache=True)
-        pcache = grow_cache(pcache, self.max_seq)
+        pcache = grow_cache(pcache, self.max_seq,
+                            window=self.cfg.sliding_window)
         scatter_slot(self.cache, pcache, slot)
         first = int(torch.argmax(logits[0, -1]))
         self.active[slot] = req

@@ -168,9 +168,6 @@ class StreamEngine:
     max_queue / retrieval_timeout_s : backpressure knobs: admission
         bound (``insert`` raises :class:`BackpressureError` beyond it)
         and the per-step bound on waiting for the search engine.
-
-    A config with sliding-window layers raises ``NotImplementedError``
-    here: their ring caches are not ported.
     """
 
     def __init__(self, params: dict, cfg: ArchConfig, *, num_slots: int = 8,
@@ -206,8 +203,7 @@ class StreamEngine:
         self.max_queue = max_queue
         self.retrieval_timeout_s = retrieval_timeout_s
 
-        # the slot caches first: a config whose caches are not ported
-        # (sliding windows) raises here, before any thread starts
+        # the slot caches first (sliding layers keep rings of the window)
         self.slots_per_group = max(1, (num_slots + 1) // 2)
         self.num_slots = 2 * self.slots_per_group
         self.groups = [_SlotGroup(cfg, self.slots_per_group, max_seq,
@@ -325,7 +321,8 @@ class StreamEngine:
                                    device=self.device)
             hid, _, pcache = forward(self.params, self.cfg, toks,
                                      build_cache=True, skip_head=True)
-        pcache = grow_cache(pcache, self.max_seq)
+        pcache = grow_cache(pcache, self.max_seq,
+                            window=self.cfg.sliding_window)
         logits, h = self._head_logits(hid[:, -1])
         return Session(request=request,
                        lm_logits=logits[0].cpu().numpy(),

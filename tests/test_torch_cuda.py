@@ -543,10 +543,142 @@ def test_flash_decode_refuses_what_it_is_not_built_for(cuda):
     pos = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_decode_cuda(q, kv, kv, pos)
-    q = torch.zeros(1, 18, 32, device=cuda)
+    q = torch.zeros(1, 34, 32, device=cuda)
     kv = torch.zeros(1, 8, 2, 32, device=cuda)
     with pytest.raises(ValueError, match="kv heads"):
         flash_decode_cuda(q, kv, kv, pos)
+    q = torch.zeros(1, 4, 32, device=cuda)
+    with pytest.raises(ValueError, match="window"):
+        flash_decode_cuda(q, kv, kv, pos, window=-1)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("hd", (80, 240))
+@pytest.mark.parametrize("groups", (1, 2, 4, 5, 8))
+def test_flash_decode_wide_and_ragged_head_dims(cuda, groups, hd, dtype):
+    """hd = 80 and 240 (idle lanes; two pieces a lane at 240 in float32),
+    with and without a window, over ragged rows: pos 0, S - 1, one tile,
+    and between."""
+    s = 700
+    q, k, v, pos = _decode_inputs(cuda, 5, s, 2 * groups, 2, hd, dtype,
+                                  [0, s - 1, 31, 64, 411], groups + hd)
+    for window in (0, 1, 50, 4096):
+        out = flash_decode_cuda(q, k, v, pos, window)
+        torch.testing.assert_close(
+            out, decode_attention_ref(q, k, v, pos, window), rtol=1e-4,
+            atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("hd", (64, 80, 128, 240))
+@pytest.mark.parametrize("groups", range(9, 17))
+def test_flash_decode_nine_to_sixteen_groups(cuda, groups, hd, dtype):
+    """G = 9 to 16 query heads a kv head (chatglm3-6b's 16): blocks over
+    slices of at most 8 heads (4 at hd = 240), the last slice ragged at
+    odd G; with and without a window."""
+    s = 600
+    q, k, v, pos = _decode_inputs(cuda, 3, s, 2 * groups, 2, hd, dtype,
+                                  [s - 1, 0, 300], 7 * groups + hd)
+    for window in (0, 64):
+        torch.testing.assert_close(
+            flash_decode_cuda(q, k, v, pos, window),
+            decode_attention_ref(q, k, v, pos, window), rtol=1e-4,
+            atol=1e-4)
+
+
+# (B, S, H, KV, hd, window): gemma3-12b's local layers (1,024-slot rings
+# read at pos_eff = min(pos, R - 1), and a full-size cache on a local
+# layer), h2o-danube-1.8b's (a 4,096-slot ring at hd = 80), and long
+# caches with a window whose lower bound skips most spans
+WINDOW_SHAPES = [(8, 1024, 16, 8, 240, 1024), (8, 2048, 16, 8, 240, 1024),
+                 (4, 4096, 32, 8, 80, 4096), (2, 32_768, 16, 8, 128, 1000),
+                 (3, 5000, 32, 2, 128, 777)]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", WINDOW_SHAPES, ids=str)
+def test_flash_decode_windows_and_rings(cuda, shape, dtype):
+    b, s, h, kvh, hd, window = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v, _ = _decode_inputs(cuda, b, s, h, kvh, hd, dtype, [0] * b,
+                                sum(shape))
+    pos = torch.randint(0, s, (b,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    pos[0] = s - 1
+    if s <= window:         # a ring: the kernel reads slots 0..min(pos, R-1)
+        absolute = pos + torch.randint(0, 3 * s, (b,), device=cuda,
+                                       generator=g, dtype=torch.int32)
+        pos = absolute.clamp(max=s - 1)
+        window = 0
+    out = flash_decode_cuda(q, k, v, pos, window)
+    torch.testing.assert_close(out, decode_attention_ref(q, k, v, pos,
+                                                         window),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_flash_decode_layout(cuda):
+    """The kernel's layout (``flash_decode_layout``): a row's lanes cover
+    its 16-byte pieces on a power of two of lanes, one piece a lane (as
+    many lanes as pieces) at hd = 16 to 128, no lane idle in both pieces;
+    a kv head's query heads are cut into blocks of a power of two of
+    heads, at most 8 (4 at hd = 240), none empty, one block up to 8
+    heads at hd <= 128."""
+    from repro_torch.kernels.decode_attention.ops import (HEAD_DIMS,
+                                                          MAX_GROUPS,
+                                                          kernel_layout)
+    for hd in HEAD_DIMS:
+        for bf16 in (False, True):
+            pieces = hd * (2 if bf16 else 4) // 16
+            for groups in range(1, MAX_GROUPS + 1):
+                lay = kernel_layout(2 * groups, 2, hd, bf16)
+                assert lay.lanes & (lay.lanes - 1) == 0
+                assert 2 <= lay.lanes <= 32 and lay.pieces in (1, 2)
+                assert lay.lanes * lay.pieces >= pieces
+                assert lay.lanes * (lay.pieces - 1) < pieces
+                if hd & (hd - 1) == 0:
+                    assert (lay.lanes, lay.pieces) == (max(pieces, 2), 1)
+                cap = 4 if hd > 128 else 8
+                assert lay.heads & (lay.heads - 1) == 0
+                assert lay.heads <= cap
+                assert (lay.slices - 1) * lay.heads < groups \
+                    <= lay.slices * lay.heads
+                assert lay.slices == -(-groups // cap)
+
+
+@pytest.mark.parametrize("arch", ("gemma3-12b", "h2o-danube-1.8b",
+                                  "chatglm3-6b"))
+def test_sliding_batcher_on_card_matches_cpu(cuda, arch):
+    """The reduced sliding-window, local-global and 2-D rope configs
+    (window 8, so that rings wrap; gemma3 at six layers, one of them
+    global) served on the card: flash-decode once a layer and step, and
+    the CPU's tokens."""
+    import dataclasses
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.batcher import ContinuousBatcher, Request
+    from repro_torch.train.tree import map_tree
+    cfg = dataclasses.replace(get_arch(arch).reduced(), sliding_window=8,
+                              num_layers=6 if arch == "gemma3-12b" else 2)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = map_tree(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 8, 13)]
+    runs, steps = [], 0
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        b = ContinuousBatcher(params, cfg, num_slots=2, max_seq=32,
+                              device=dev)
+        for i, p in enumerate(prompts):
+            b.submit(Request(i, p, max_new_tokens=12))
+        before = flash_decode_cuda.launches
+        while b.pending or any(a is not None for a in b.active):
+            if b.step() and dev != "cpu":
+                steps += 1
+        runs.append({c.request_id: c.tokens for c in b.done})
+    assert runs[0] == runs[1]
+    assert flash_decode_cuda.launches - before == cfg.num_layers * steps
 
 
 def test_lm_batcher_on_card_matches_cpu(cuda):

@@ -3,10 +3,14 @@
 PyTorch or numpy and held against the JAX package on the CPU.
 
 ``flash_decode_tiled_ref`` runs the decode kernel's cut of the cache:
-each (batch row, kv head)'s valid rows in spans of ``tiles_per_span``
-tiles of ``tile_rows`` rows (a span past the valid rows does nothing),
-an online softmax from tile to tile, and the spans' partial (max, sum,
-acc) merged in span order; ``decode_plan`` picks the cut.
+each (batch row, kv head)'s valid rows lo..pos (lo = pos - window + 1
+with a window, else 0) in spans of ``tiles_per_span`` tiles of
+``tile_rows`` rows (a span outside the valid rows does nothing), an
+online softmax from tile to tile, and the spans' partial (max, sum, acc)
+merged in span order; ``decode_plan`` picks the cut, its tiles sized by
+a row's bytes as the kernel's lanes read it. With a window, and on a ring (pos_eff = min(pos, R - 1)), the
+mirror is held against the reference's ``decode_attention_block`` reduced
+to its attention, so that it meets the block's own masks.
 ``merge_packed_mirror`` runs the merge kernel's rounds: one 64-bit key an
 entry (an order-preserving map of the score, -0.0 folded onto +0.0 with a
 bit that remembers it, over the complement of the position), entries
@@ -24,13 +28,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.common.config import ArchConfig as RefArchConfig
+from repro.common.config import RoPEKind as RefRoPEKind
 from repro.kernels.decode_attention.kernel import flash_decode_pallas
 from repro.kernels.decode_attention.ref import \
     decode_attention_ref as ref_decode
 from repro.kernels.merge_topk.kernel import NEG_INF, merge_topk_pallas
 from repro.kernels.merge_topk.ref import merge_topk_np as ref_merge_np
+from repro.models.attention import AttnSpec as RefAttnSpec
+from repro.models.attention import \
+    decode_attention_block as ref_decode_block
 from repro_torch.kernels.decode_attention.ops import (MAX_SPANS,
-                                                      DecodePlan,
+                                                      DecodePlan, Layout,
                                                       decode_plan)
 from repro_torch.kernels.merge_topk import merge_topk
 
@@ -42,7 +51,8 @@ H100_SMS = 132
 # ---------------------------------------------------------------------------
 
 
-def flash_decode_tiled_ref(q, k, v, pos, *, tile_rows, tiles_per_span):
+def flash_decode_tiled_ref(q, k, v, pos, *, tile_rows, tiles_per_span,
+                           window=0):
     """q [B, H, hd], k and v [B, S, KV, hd], pos [B] -> [B, H, hd]
     float32, as the kernel computes it."""
     b, h, hd = q.shape
@@ -51,9 +61,13 @@ def flash_decode_tiled_ref(q, k, v, pos, *, tile_rows, tiles_per_span):
     qg = q.reshape(b, kvh, g, hd).float()
     kf, vf = k.float(), v.float()
     scale = 1.0 / float(np.sqrt(np.float32(hd)))
-    n_valid = (pos.long() + 1).clamp(0, s)
+    hi = (pos.long() + 1).clamp(0, s)
+    lo = (pos.long() - window + 1).clamp(min=0) if window else \
+        torch.zeros_like(hi)
     span_rows = tile_rows * tiles_per_span
-    n_spans = ((n_valid + span_rows - 1) // span_rows).clamp(min=1)
+    empty = hi <= lo                    # span 0 alone runs, with no row
+    first = torch.where(empty, 0, lo // span_rows)
+    n_spans = torch.where(empty, 1, (hi - 1) // span_rows - first + 1)
     parts = []                          # per span: (m, l, acc, ran)
     for start in range(0, s, span_rows):
         m = torch.full((b, kvh, g), -torch.inf)
@@ -61,7 +75,8 @@ def flash_decode_tiled_ref(q, k, v, pos, *, tile_rows, tiles_per_span):
         acc = torch.zeros(b, kvh, g, hd)
         for t0 in range(start, min(start + span_rows, s), tile_rows):
             rows = torch.arange(t0, min(t0 + tile_rows, s))
-            valid = rows[None, :] < n_valid[:, None]             # [B, T]
+            valid = (rows[None, :] < hi[:, None]) \
+                & (rows[None, :] >= lo[:, None])                 # [B, T]
             sc = torch.einsum("bkgh,btkh->bkgt", qg, kf[:, rows]) * scale
             sc = sc.masked_fill(~valid[:, None, None, :], -torch.inf)
             m_new = torch.maximum(m, sc.amax(-1))
@@ -74,19 +89,22 @@ def flash_decode_tiled_ref(q, k, v, pos, *, tile_rows, tiles_per_span):
             acc = acc * c[..., None] + torch.einsum("bkgt,btkh->bkgh", p,
                                                     vf[:, rows])
             m = m_new
-        parts.append((m, l, acc, start < n_valid))
+        parts.append((m, l, acc, (start < hi) & (start + span_rows > lo)))
     out = torch.zeros(b, kvh, g, hd)
     for bi in range(b):
-        ns = int(n_spans[bi])
+        f, ns = int(first[bi]), int(n_spans[bi])
         if ns == 1:                     # written directly by its one span
-            m, l, acc, _ = parts[0]
+            m, l, acc, _ = parts[f]
             out[bi] = acc[bi] / l[bi].clamp(min=1e-30)[..., None]
             continue
-        assert all(bool(parts[j][3][bi]) for j in range(ns))
-        mx = torch.stack([parts[j][0][bi] for j in range(ns)]).amax(0)
+        spans = range(f, f + ns)
+        assert all(bool(parts[j][3][bi]) for j in spans)
+        assert not any(bool(p[3][bi]) for j, p in enumerate(parts)
+                       if j not in spans)
+        mx = torch.stack([parts[j][0][bi] for j in spans]).amax(0)
         num = torch.zeros(kvh, g, hd)
         den = torch.zeros(kvh, g)
-        for j in range(ns):             # span order
+        for j in spans:                 # span order
             m, l, acc, _ = parts[j]
             c = torch.exp(m[bi] - mx)
             num = num + c[..., None] * acc[bi]
@@ -158,21 +176,21 @@ def test_decode_plan_cuts_by_tiles_then_by_spans():
     plan covers the cache."""
     # phase 5's step: 8 slots x 8 kv heads x 16 tiles of 64 bf16 rows
     # (hd = 128) do not fit at 2 blocks an SM, so 4 spans of 4 tiles
-    assert decode_plan(64, 1024, 128, 2, H100_SMS, 2) == DecodePlan(64, 4, 4)
+    assert decode_plan(64, 1024, 256, H100_SMS, 2) == DecodePlan(64, 4, 4)
     # the same cache fits when the card holds 8 blocks an SM
-    assert decode_plan(64, 1024, 128, 2, H100_SMS, 8) == DecodePlan(64, 1, 16)
+    assert decode_plan(64, 1024, 256, H100_SMS, 8) == DecodePlan(64, 1, 16)
     # float32 rows: tiles of 32 rows
-    assert decode_plan(2, 300, 128, 4, H100_SMS, 2) == DecodePlan(32, 1, 10)
+    assert decode_plan(2, 300, 512, H100_SMS, 2) == DecodePlan(32, 1, 10)
     for groups, s, hd, elem in ((64, 32_768, 128, 2), (1, 32_768, 16, 2),
                                 (1, 32_768, 128, 2), (512, 1024, 128, 4),
                                 (2, 5000, 64, 4)):
-        p = decode_plan(groups, s, hd, elem, H100_SMS, 2)
+        p = decode_plan(groups, s, hd * elem, H100_SMS, 2)
         assert p.spans * p.tiles_per_span * p.tile_rows >= s
         assert p.spans <= MAX_SPANS
         if p.tiles_per_span > 1:     # one wave, or one span a pair
             assert groups * p.spans <= max(H100_SMS * 2, groups)
     # --tile overrides the tile
-    assert decode_plan(64, 1024, 128, 2, H100_SMS, 8, tile_rows=128) \
+    assert decode_plan(64, 1024, 256, H100_SMS, 8, tile_rows=128) \
         == DecodePlan(128, 1, 8)
 
 
@@ -182,9 +200,77 @@ def test_tiled_decode_under_the_plan(sms):
     a card of a few SMs: one tile a block, and spans of several tiles."""
     for s, pos in ((1024, [1023, 0, 500, 64]), (2000, [1999, 17, 64, 1024])):
         b, h, kvh, hd = 4, 8, 4, 32
-        plan = decode_plan(b * kvh, s, hd, 2, sms, 8)
+        plan = decode_plan(b * kvh, s, hd * 2, sms, 8)
         _check_tiled(_decode_case(b, s, h, kvh, hd, pos, seed=s),
                      plan.tile_rows, plan.tiles_per_span, pallas=False)
+
+
+def _ref_block_attention(q, k, v, pos, window):
+    """The reference's ``decode_attention_block`` reduced to its
+    attention: identity query and output projections, zero key and value
+    projections, no rope. Returns (out [B, H, hd], the caches with the
+    token's zero row written where the block writes it)."""
+    b, h, hd = q.shape
+    kvh, d = k.shape[2], h * hd
+    cfg = RefArchConfig(name="attention-only", family="dense",
+                        num_layers=1, d_model=d, num_heads=h,
+                        num_kv_heads=kvh, d_ff=1, vocab_size=1, head_dim=hd,
+                        rope=RefRoPEKind.NONE, dtype="float32")
+    eye = jnp.eye(d, dtype=jnp.float32)
+    zero = jnp.zeros((d, kvh * hd), jnp.float32)
+    y, kc, vc = ref_decode_block(
+        {"w_q": eye, "w_k": zero, "w_v": zero, "w_o": eye}, cfg,
+        jnp.asarray(q.reshape(b, 1, d)), jnp.asarray(pos), jnp.asarray(k),
+        jnp.asarray(v), RefAttnSpec(window > 0, window))
+    return np.array(y).reshape(b, h, hd), np.array(kc), np.array(vc)
+
+
+# (B, S, H, KV, hd, tile_rows, tiles_per_span, window, pos). Full-size
+# caches on a sliding layer (S > window): a window past pos, a window's
+# lower bound inside a tile and inside a span, spans before it skipped;
+# G = 2, 5, 16 and hd = 16 to 240. Rings (S <= window): positions before
+# and past a wrap, read as pos_eff = min(pos, S - 1) with no window.
+WINDOW_CASES = [
+    (4, 300, 8, 4, 16, 32, 1, 40, [0, 39, 40, 299]),
+    (3, 520, 16, 1, 16, 32, 3, 100, [519, 250, 60]),
+    (2, 200, 10, 2, 80, 16, 2, 33, [199, 32]),
+    (2, 130, 4, 2, 240, 16, 1, 64, [129, 64]),
+]
+RING_CASES = [
+    (3, 8, 8, 2, 16, 4, 1, 8, [3, 7, 20]),
+    (2, 64, 16, 1, 32, 16, 2, 64, [100, 30]),
+    (2, 48, 4, 2, 80, 16, 1, 64, [47, 1000]),
+]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES + RING_CASES, ids=str)
+def test_windowed_tiled_decode_matches_reference_block(case):
+    b, s, h, kvh, hd, t, per, window, pos = case
+    q, k, v, pos = _decode_case(b, s, h, kvh, hd, pos, seed=s + window)
+    want, kc, vc = _ref_block_attention(q, k, v, pos, window)
+    ring = s <= window
+    ours = flash_decode_tiled_ref(
+        torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
+        torch.as_tensor(np.minimum(pos, s - 1) if ring else pos),
+        tile_rows=t, tiles_per_span=per, window=0 if ring else window)
+    np.testing.assert_allclose(ours.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lanes,pieces", [(2, 1), (4, 1), (8, 1), (16, 1),
+                                          (32, 1), (32, 2)])
+def test_decode_plan_tiles_are_one_pass_of_a_block(lanes, pieces):
+    """A tile is one pass of the block at G <= 4: 8 warps x 32 / lanes
+    rows x 4 / pieces row loads a lane, for every lane layout the kernel
+    has (one piece a lane at hd = 16 to 128; 16 and 32 lanes with idle
+    ones at hd = 80 and 240; two pieces a lane at hd = 240 in float32).
+    A bf16 row of hd = 240 (480 bytes) is read as 512, so its tiles are
+    32 rows."""
+    row = Layout(lanes, pieces, 1, 1).row_bytes
+    assert row == 16 * lanes * pieces
+    tile = decode_plan(1, 10_000, row, H100_SMS, 2).tile_rows
+    assert tile == 8 * (32 // lanes) * (4 // pieces)
+    if (lanes, pieces) == (32, 1):
+        assert decode_plan(64, 1024, row, H100_SMS, 2).tile_rows == 32
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,7 @@ def test_example_runs_on_cpu_without_jax_or_reference(name, tmp_path):
     if name == "torch_train_lm":
         args = args + ("--ckpt", str(tmp_path / "ckpt"))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               OMP_NUM_THREADS="2")
+               OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-c", RUNNER, str(EXAMPLES / f"{name}.py"),
          "--device", "cpu", *args],

@@ -58,6 +58,9 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.kernels.ssd", "repro_torch.kernels.ssd.ops",
             "repro_torch.kernels.ssd.ref"} <= set(MODULES)
     assert "repro_torch.serving.stream" in MODULES
+    assert {"repro_torch.configs.gemma3_12b",
+            "repro_torch.configs.h2o_danube_1_8b",
+            "repro_torch.configs.chatglm3_6b"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"

@@ -837,6 +837,24 @@ def test_walk_plan_shrinks_staging_to_fit():
         assert 1 <= p.stage_rows <= m0
 
 
+@pytest.mark.parametrize("walks", (8, 16, 133, 4096))
+@pytest.mark.parametrize("quantized", (False, True))
+def test_walk_plan_slices_the_gemma3_datastore(walks, quantized):
+    """gemma3-12b's kNN-LM keys (d = 3,840, M0 = 24, ef = 60; a shard of
+    at most 464 of 1,400 keys): 24 float32 rows of 3,840 (360 KB) fit no
+    block, so the plan stages slices of d, multiples of 64 columns, and
+    does not raise; int8 rows (90 KB) stage whole while there are no more
+    walks than SMs."""
+    plan = walk_plan(walks, 464, 3840, 60, 24, quantized, 132)
+    assert plan.smem_bytes <= SMEM_MAX_BYTES
+    assert 1 <= plan.stage_rows <= 24
+    if quantized and walks <= 132:
+        assert plan.slice_cols == 3840
+    else:
+        assert plan.slice_cols % 64 == 0 and plan.slice_cols < 3840
+        assert plan.stage_buffers == 2
+
+
 def _walk_case(s, n, d, c, m0, seed, quantized=False, grid=False):
     rng = np.random.default_rng(seed)
     if grid:

@@ -30,8 +30,7 @@ from repro.serving import decode as RDec
 from repro.serving import retrieval as RR
 from repro.serving import sampler as RS
 from repro_torch import convert
-from repro_torch.common.config import (AttentionKind, BlockKind,
-                                       MoEConfig, PyramidConfig)
+from repro_torch.common.config import BlockKind, MoEConfig, PyramidConfig
 from repro_torch.common.registry import get_arch, list_archs
 from repro_torch.core import distributed as TD
 from repro_torch.kernels import launch_counts
@@ -74,7 +73,8 @@ def _close(ours, ref, **tol):
 
 
 def test_config_and_registry_match_reference():
-    assert list_archs() == ["mamba2-780m", "qwen3-1.7b"]
+    assert list_archs() == ["chatglm3-6b", "gemma3-12b", "h2o-danube-1.8b",
+                            "mamba2-780m", "qwen3-1.7b"]
     for arch in list_archs():
         for reduce in (False, True):
             ref, ours = ref_get_arch(arch), get_arch(arch)
@@ -108,12 +108,13 @@ def test_unported_families_raise():
     base = get_arch("qwen3-1.7b").reduced()
     for cfg in (dataclasses.replace(base, block_pattern=(
                     BlockKind.SHARED_ATTENTION,)),
-                dataclasses.replace(base, moe=MoEConfig(4, 2))):
+                dataclasses.replace(base, moe=MoEConfig(4, 2)),
+                dataclasses.replace(base, frontend="vision",
+                                    frontend_dim=16)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TT.init_params(cfg, device="cpu")
-    swa = dataclasses.replace(base, attention_kind=AttentionKind.SLIDING)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.make_cache(swa, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TT.make_cache(cfg, 1, 8, device="cpu")
 
 
 def test_forward_matches_reference(model):

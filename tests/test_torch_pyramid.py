@@ -250,6 +250,23 @@ def test_pool_fan_out_equals_sequential(data):
             np.testing.assert_array_equal(la, lb)
 
 
+def test_pool_takes_the_largest_shards_first(data):
+    x, _, _ = data
+    cfg = PyramidConfig(**{**CFG, "num_shards": 3})
+    plan = plan_build(x[:240], cfg, device="cpu")
+    submitted = []
+
+    class Recording(concurrent.futures.ThreadPoolExecutor):
+        def submit(self, fn, task, *args, **kwargs):
+            submitted.append(task.shard)
+            return super().submit(fn, task, *args, **kwargs)
+
+    build_subgraphs(plan, workers=2, pool_factory=lambda: Recording(2))
+    sizes = [len(plan.sub_ids[i]) for i in submitted]
+    assert sorted(submitted) == list(range(3))
+    assert sizes == sorted(sizes, reverse=True)
+
+
 def test_mips_build_replicates_and_dedups(data):
     x, q, _ = data
     cfg = PyramidConfig(**{**CFG, "metric": "ip", "replication_r": 20})

@@ -31,10 +31,8 @@ from repro.serving import retrieval as RR
 from repro.serving import sampler as RSa
 from repro.serving import stream as RStream
 from repro_torch import convert
-from repro_torch.common.config import AttentionKind
 from repro_torch.common.registry import get_arch
 from repro_torch.models import transformer as TT
-from repro_torch.models.attention import SLIDING_TODO
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving import batcher as TB
 from repro_torch.serving import retrieval as TR
@@ -251,18 +249,28 @@ def test_metrics_and_spans_match_reference(qwen3):
                      "stream.gather", "stream.dispatch"}
 
 
-def test_sliding_window_config_is_refused(qwen3):
-    """Sliding-window layers keep ring caches, not ported yet: the engine
-    raises at construction rather than serving them from full caches."""
-    cfg = dataclasses.replace(qwen3["cfg"],
-                              attention_kind=AttentionKind.SLIDING,
-                              sliding_window=8)
-    with pytest.raises(NotImplementedError) as err:
-        StreamEngine(qwen3["params"], cfg, num_slots=2, max_seq=32, **CPU)
-    assert str(err.value) == SLIDING_TODO
-    with pytest.raises(NotImplementedError, match="sliding"):
-        StreamEngine(qwen3["params"], cfg, num_slots=2, max_seq=32,
-                     datastore=qwen3["ds"], **CPU)
+def test_sliding_window_config_is_refused():
+    """Sliding-window configs are served, not refused: gemma3's
+    local-global stack (reduced, six layers: five keep 8-slot rings, one a
+    full cache) through ``StreamEngine``, prompts shorter and longer than
+    the window and decoding past it, completes the same greedy tokens as
+    ``ContinuousBatcher``, whose tokens ``tests/test_torch_sliding.py``
+    holds to the reference's. (The name is kept from when
+    ``StreamEngine`` refused these configs.)"""
+    cfg = dataclasses.replace(get_arch("gemma3-12b").reduced(),
+                              sliding_window=8, num_layers=6)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), **CPU)
+    assert set(TT.make_cache(cfg, 1, 32, **CPU)) == {"attention@swa",
+                                                     "attention"}
+    prompts = _prompts(cfg, 5, seed=4, lo=3, hi=14)
+    b = TB.ContinuousBatcher(params, cfg, num_slots=4, max_seq=32, **CPU)
+    for i, p in enumerate(prompts):
+        b.submit(TB.Request(i, p, max_new_tokens=12))
+    want = {c.request_id: c.tokens for c in b.run_until_drained()}
+    with StreamEngine(params, cfg, num_slots=4, max_seq=32, **CPU) as eng:
+        by_id = _run(eng, prompts, n_new=12)
+    assert {i: c.tokens for i, c in by_id.items()} == want
+    assert all(len(t) == 12 for t in want.values())
 
 
 def test_needs_the_card_unless_asked(qwen3, monkeypatch):
