@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port of the Pyramid index, its serving engine,
 and kNN-LM serving over it, on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n 50000]
+    python3 chip_smoke.py [--n 32000]
 
 Phases, each raising on failure (the script then exits non-zero):
 
@@ -129,6 +129,28 @@ Phases, each raising on failure (the script then exits non-zero):
      and depth 2. Flash-decode's plain version never runs on the card there.
      Phase 2 holds flash-decode at phase 12's shapes (hd = 80 and 240, G
      = 16, rings, a window) and the beam kernel at d = 3,840.
+  13. mixture of experts (under 120 s): 13a float32 checks of
+     phi3.5-moe-42b-a6.6b (depth 2 of 32) and grok-1-314b (depth 1 of 64)
+     at full width, each MoE layer of the prefill held to a float64
+     recomputation of the block from its input (experts, slots and kept
+     assignments equal; the output within 1e-4 of its largest value),
+     and a prefill with 16 greedy decode steps through flash-decode held
+     to the same run through its plain version (tokens equal, logits
+     within 1e-3); 13b phi3.5-moe's kNN-LM serving at full width in bf16,
+     16 of its 32 layers, as phase 5 serves qwen3 (a 1,024-key datastore
+     at d = 4,096, 16 requests of 128 to 1,024 tokens in 8 slots of a
+     2,048-row cache, 32 new tokens, flash-decode 16 times a step and its
+     plain version never, the assignments each decode step drops at the
+     capacity; the kNN step's keys taken again from the build's forward,
+     since a prefix's own forward has other capacities); 13c its train
+     step at full width, depth 2, bf16, batch 4 x 256 (every leaf's
+     gradient non-zero at step 1, the aux loss finite and positive), and
+     the reduced config on the card against the CPU and the reference
+     test's 60-step run. Phase 2 holds flash-decode at phi3.5's (32 query
+     heads over 8) and grok-1's (48 over 8) shapes, the beam kernel at d
+     = 4,096, and the int8 scan's l2 error against float64 at phase 4's
+     data, split into its parts: on each query's float64 top 10 rows at
+     or below the plain version's and under half a named near tie's gap.
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -183,8 +205,13 @@ QUANT_TOL = 1e-5
 SSD_TOL = 1e-4
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -262,10 +289,10 @@ def beam_rows(n: int) -> list:
     routing walk's over the meta-HNSW (1,000 centres); an engine
     executor's batch (16 walks over one shard of n / 16 rows); and the
     kNN-LM lookups' shard walks of phases 5 and 6 (DATASTORE_PYR: 4
-    shards of the 4,096-key qwen3-1.7b, 2,048-key mamba2-780m and
-    1,400-key gemma3-12b datastores at their widths, M0 = 2 x
-    max_degree, 8 slots, ef=60; d = 3,840 stages slices of d, not whole
-    rows)."""
+    shards of the 4,096-key qwen3-1.7b, 2,048-key mamba2-780m,
+    1,400-key gemma3-12b and 1,024-key phi3.5-moe datastores at their
+    widths, M0 = 2 x max_degree, 8 slots, ef=60; d = 3,840 and 4,096
+    stage slices of d, not whole rows)."""
     rows = [dict(metric=m, quantized=qz) for qz in (False, True)
             for m in ("l2", "ip", "angular")]
     return rows + [
@@ -277,6 +304,8 @@ def beam_rows(n: int) -> list:
         dict(metric="l2", quantized=False, s=4, n=512, d=1536, m0=24, c=8,
              ef=60),
         dict(metric="l2", quantized=False, s=4, n=350, d=3840, m0=24, c=8,
+             ef=60),
+        dict(metric="l2", quantized=False, s=4, n=256, d=4096, m0=24, c=8,
              ef=60)]
 
 
@@ -488,6 +517,110 @@ def check_quant(dev, b: int, n: int, d: int, metric: str,
             **quant_bounds(b, n, d)}
 
 
+# phase 2's int8 error row: phase 4's data at the script's --n, the first
+# QUANT_ERR_QUERIES queries, and the query whose near tie the kernel's
+# earlier chained sums swapped at n = 32,000 (ranks 7 and 8, 3.4e-5 apart).
+# The gate reads the error on each query's float64 top QUANT_ERR_TOP rows
+# (phase 4's k), where the scan's order is decided and |score| is about 5;
+# the largest error over all rows comes from far rows (|score| up to 454)
+# and is recorded beside
+QUANT_ERR_QUERIES = 64
+QUANT_ERR_TOP = 10
+QUANT_MAIN_N = 50_000
+QUANT_TIE_QUERY = 45
+
+
+def quant_error_row(dev, n: int, scores=None) -> dict:
+    """The int8 scan's l2 scores against float64 on phase 4's data (the
+    first 64 of its queries against all n rows), for the kernel and for
+    the plain float32 version, each error split into its parts: the dot
+    product (q.x with x = c * scale + zero, the ``ip`` output), |x|^2, q.z
+    and the rest (|q|^2 and the epilogue's roundings). Each part's largest
+    error is taken over the query's float64 top QUANT_ERR_TOP rows
+    (``kernel_top``, ``plain_top``) and over all rows (``kernel``,
+    ``plain``). The kernel's parts are read from its own outputs: ``ip``
+    for q.x; ``l2`` at q = 0 for -|x|^2; ``ip`` on all-zero codes for q.z;
+    ``l2 - 2 ip + |x|^2`` for -|q|^2. Also the nearest adjacent pair of
+    float64's top 10 of query QUANT_TIE_QUERY, with the three scores of
+    each row. ``passes``: the kernel's top-row l2 error is at or below the
+    plain version's and under half the pair's float64 gap, and the pair
+    keeps its order. ``scores``: the kernel's
+    call ``(q, codes, scale, zero, metric)``, ``quant_scores_cuda`` unless
+    given (another revision of the source)."""
+    import torch
+    from repro_torch.kernels.quant_distance import (dequantize,
+                                                    quant_scores_cuda)
+    scores = scores or (lambda q, c, s, z, metric: quant_scores_cuda(
+        q, c, s, z, metric=metric))
+    q, codes, scale, zero = quant_inputs(dev, N_QUERIES, n, 128, 0, True)
+    q = q[:QUANT_ERR_QUERIES].contiguous()
+
+    def kernel(qq, cc, metric):
+        return scores(qq.contiguous(), cc, scale, zero, metric).double()
+    x = dequantize(codes, scale, zero)
+    q64, x64, z64 = q.double(), x.double(), zero.double()
+    want = {"l2": 2.0 * q64 @ x64.T - (q64 * q64).sum(1)[:, None]
+            - (x64 * x64).sum(1)[None, :],
+            "dot": q64 @ x64.T, "xn": (x64 * x64).sum(1),
+            "qz": q64 @ z64, "qn": (q64 * q64).sum(1)}
+    l2, ip = kernel(q, codes, "l2"), kernel(q, codes, "ip")
+    xn = -kernel(torch.zeros_like(q[:1]), codes, "l2")[0]
+    qz = kernel(q, torch.zeros_like(codes[:1]), "ip")[:, 0]
+    qn = -(l2 - 2.0 * ip + xn[None, :])
+    got = {"kernel": {"l2": l2, "dot": ip, "xn": xn, "qz": qz, "qn": qn}}
+    dot, pxn, pqn = q @ x.T, (x * x).sum(1), (q * q).sum(1)
+    got["plain"] = {"l2": (2.0 * dot - pqn[:, None] - pxn[None, :]).double(),
+                    "dot": dot.double(), "xn": pxn.double(),
+                    "qz": (q * zero).sum(1).double(),
+                    "qn": pqn.double()[:, None].expand_as(dot)}
+    # each query's float64 top rows
+    top_rows = torch.topk(want["l2"], QUANT_ERR_TOP, dim=1).indices
+
+    def error(part, have, at_top):
+        ref = want[part][:, None] if part == "qn" else want[part]
+        diff = (have - ref).abs()
+        if at_top and diff.dim() == 2:
+            diff = diff.gather(1, top_rows)
+        elif at_top and part == "xn":
+            diff = diff[top_rows]
+        return float(diff.max())
+    out = {"shape": f"B={QUANT_ERR_QUERIES} n={n} d=128",
+           "top_rows": QUANT_ERR_TOP}
+    for who, parts in got.items():
+        out[who] = {part: error(part, parts[part], False) for part in want}
+        out[f"{who}_top"] = {part: error(part, parts[part], True)
+                             for part in want}
+    top = top_rows[QUANT_TIE_QUERY]
+    gaps = want["l2"][QUANT_TIE_QUERY, top[:-1]] - \
+        want["l2"][QUANT_TIE_QUERY, top[1:]]
+    j = int(gaps.argmin())
+    rows = [int(top[j]), int(top[j + 1])]
+    out["tie"] = {"query": QUANT_TIE_QUERY, "ranks": [j, j + 1],
+                  "rows": rows, "float64_gap": float(gaps[j]),
+                  **{who: [float(got[who]["l2"][QUANT_TIE_QUERY, r])
+                           for r in rows] for who in got},
+                  "float64": [float(want["l2"][QUANT_TIE_QUERY, r])
+                              for r in rows]}
+    out["kernel_order_kept"] = bool(
+        (out["tie"]["kernel"][0] > out["tie"]["kernel"][1])
+        == (out["tie"]["float64"][0] > out["tie"]["float64"][1]))
+    # the pair's order is the kernel's by construction, not by luck, when
+    # every top-row score is off by less than half the pair's gap
+    out["passes"] = bool(out["kernel_top"]["l2"] <= out["plain_top"]["l2"]
+                         and out["kernel_top"]["l2"]
+                         < out["tie"]["float64_gap"] / 2
+                         and out["kernel_order_kept"])
+    log(f"quant_distance error against float64, {out['shape']}, on each "
+        f"query's top {QUANT_ERR_TOP} rows: kernel "
+        f"{fmt_share(out['kernel_top'])}; plain "
+        f"{fmt_share(out['plain_top'])}; over all rows: kernel "
+        f"{fmt_share(out['kernel'])}; plain {fmt_share(out['plain'])}; "
+        f"query {QUANT_TIE_QUERY}'s nearest pair {out['tie']}")
+    del q, codes, x, l2, ip, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def quant_bounds(b: int, n: int, d: int) -> dict:
     """The int8 scan's least work: codes, queries, scale and zero read
     once and the float32 scores written once, against the kernel's
@@ -547,7 +680,8 @@ def decode_inputs(dev, *, b: int = 8, s: int = 1024, h: int = 16,
                   pos: str = "random", seed: int = 3):
     """q [B, H, hd] f32, a cache [B, S, KV, hd] in ``dtype`` and ``pos``:
     "random" (0..S-1), "full" (S - 1), "served" (:func:`served_positions`
-    of qwen3-1.7b) or "served-gemma3" (those of gemma3-12b)."""
+    of qwen3-1.7b), "served-gemma3" or "served-phi3.5" (those of
+    gemma3-12b or phi3.5-moe-42b-a6.6b)."""
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -557,7 +691,8 @@ def decode_inputs(dev, *, b: int = 8, s: int = 1024, h: int = 16,
     if pos == "full":
         p = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
     elif pos.startswith("served"):
-        arch = "gemma3-12b" if pos == "served-gemma3" else "qwen3-1.7b"
+        arch = {"served-gemma3": "gemma3-12b",
+                "served-phi3.5": MOE_ARCH}.get(pos, "qwen3-1.7b")
         p = torch.as_tensor(served_positions(b, seed, arch),
                             dtype=torch.int32, device=dev)
     else:
@@ -641,7 +776,8 @@ def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
     del launch
     torch.cuda.empty_cache()
     shown = {"full": "S-1", "served": "served",
-             "served-gemma3": "gemma3 served"}.get(pos_mode, pos_mode)
+             "served-gemma3": "gemma3 served",
+             "served-phi3.5": "phi3.5 served"}.get(pos_mode, pos_mode)
     if ring:
         shown = "past the ring (every slot)"
     return {"shape": f"B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} "
@@ -897,14 +1033,15 @@ def kernels_vs_plain(dev, n: int) -> dict:
             f"{r['kernel_device_ms']:.4f} ms: {fmt_ms(r['stage_device_ms'])})"
             f" plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
             f"bound {r['bound_ms']:.5f} ms")
-    # the int8 scan: a brute-force scan of phase 4's whole quantized index,
-    # the reference's roofline shape (benchmarks/roofline.py:208), and a
-    # ragged shape
-    for b, rows, d in ((N_QUERIES, n, 128), (256, 16_384, 128),
+    # the int8 scan: a brute-force scan of phase 4's quantized data at
+    # 50,000 rows (the int8 scan's timed row), the reference's
+    # roofline shape (benchmarks/roofline.py:208), and a ragged shape; then
+    # its l2 error against float64 at phase 4's n, split into its parts
+    for b, rows, d in ((N_QUERIES, QUANT_MAIN_N, 128), (256, 16_384, 128),
                        (37, 53, 8)):
         for metric in ("l2", "ip", "angular"):
             r = check_quant(dev, b, rows, d, metric,
-                            phase4=(b, rows) == (N_QUERIES, n))
+                            phase4=(b, rows) == (N_QUERIES, QUANT_MAIN_N))
             res["quant_distance"].append(r)
             log(f"quant_distance {r['shape']} {metric}: max err "
                 f"{r['max_abs_err']:.3g} (|score| <= {r['score_scale']:.3g};"
@@ -914,6 +1051,12 @@ def kernels_vs_plain(dev, n: int) -> dict:
                 f"ms matmul yardstick {r['matmul_yardstick_ms']:.4f} ms "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; float32 "
                 f"FMA bound {r['fp32_fma_bound_ms']:.4f} ms)")
+    res["quant_error"] = quant_error_row(dev, n)
+    if not res["quant_error"]["passes"]:
+        raise AssertionError(f"quant_distance: the kernel's l2 error "
+                             f"against float64 on the top rows passes the "
+                             f"plain version's or half the near tie's gap, "
+                             f"or the tie is swapped: {res['quant_error']}")
     # a full-width qwen3-1.7b decode step's attention (8 slots, a 1,024-row
     # cache; bf16 as served, f32 as checked), then a long cache, then
     # phase 5's served positions; then phase 12's layers: gemma3-12b's
@@ -921,7 +1064,9 @@ def kernels_vs_plain(dev, n: int) -> dict:
     # decode (2,048 rows at 12b's served positions), h2o-danube-1.8b's
     # (a 4,096-slot ring, hd = 80) and chatglm3-6b's (16 query heads a kv
     # head), a full-size cache with a window, and float32 at hd = 80 and
-    # 240
+    # 240; then phase 13's: phi3.5-moe's (32 query heads over 8, S 2,048
+    # at 13b's served positions) and grok-1's (48 over 8: 6 query heads a
+    # kv head, one block of 8 with two idle) in bf16 and float32
     for kw in (dict(), dict(dtype="float32"),
                dict(s=32_768, pos="full"), dict(pos="served"),
                dict(hd=240, ring=True),
@@ -930,7 +1075,9 @@ def kernels_vs_plain(dev, n: int) -> dict:
                dict(s=2048, h=32, kvh=2),
                dict(s=2048, hd=240, window=1024, pos="full"),
                dict(s=4096, h=32, hd=80, ring=True, dtype="float32"),
-               dict(hd=240, ring=True, dtype="float32")):
+               dict(hd=240, ring=True, dtype="float32"),
+               dict(s=2048, h=32, pos="served-phi3.5"),
+               dict(h=48), dict(h=48, dtype="float32")):
         r = check_decode(dev, **kw)
         res["decode_attention"].append(r)
         log(f"decode_attention {r['shape']}: max err {r['max_abs_err']:.3g}"
@@ -1408,6 +1555,8 @@ PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
 #     LM_LOGITS_ATOL (the check prints this floor as the prefill error).
 #     Layer by layer nothing is amplified, and the prefill state's
 #     hand-off to the recurrent decode is held at every layer.
+# phase 13's served MoE config
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 LM_SPECS = {
     # a corpus of 8 rows (4,096 keys), a cut of scale that keeps time for
     # phase 12
@@ -1444,6 +1593,17 @@ LM_SPECS = {
                   prompt_lo=700, prompt_hi=1400, prefix_max=1400, slots=8,
                   max_seq=2048, max_new=64, knn_k=8, seed=12,
                   prefill_len=None),
+        kernels=PYRAMID_KERNELS + ("decode_attention",), absent=("ssd",),
+        step_kernel="decode_attention", forward_kernel=None, gate="logits"),
+    # phase 13b: phi3.5-moe at full width, bf16, 16 of its 32 layers (the
+    # cell's only cut: 32 layers are 83.8 GB, 16 are 42.1 GB), over one
+    # corpus row of 1,025 tokens (1,024 keys at d = 4,096) and prompts of
+    # 128 to 1,024 tokens in a 2,048-row cache; 32 new tokens each
+    MOE_ARCH: dict(
+        cell=dict(corpus_seqs=1, corpus_len=1025, ds_batch=1, requests=16,
+                  prompt_lo=128, prompt_hi=1024, prefix_max=1024, slots=8,
+                  max_seq=2048, max_new=32, knn_k=8, seed=13,
+                  prefill_len=None, num_layers=16),
         kernels=PYRAMID_KERNELS + ("decode_attention",), absent=("ssd",),
         step_kernel="decode_attention", forward_kernel=None, gate="logits"),
     # phase 12c, float32 checks at the configs' widths and depth 2 (the
@@ -1550,8 +1710,7 @@ def stream_serve(params, cfg, prompts, dev, *, max_new: int, slots: int,
     from repro_torch.kernels import launch_counts
     from repro_torch.serving.batcher import Request
     from repro_torch.serving.stream import StreamEngine
-    gc.collect()            # an earlier engine's caches (a cycle through
-    torch.cuda.empty_cache()  # its registry's gauges) go before the peak
+    torch.cuda.empty_cache()  # a closed engine's caches go before the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = launch_counts()
@@ -1827,7 +1986,10 @@ def lm_path(dev, arch: str) -> dict:
     """The LM main path of ``arch`` at full width in bf16 (its LM_SPECS
     cell): datastore build, continuous batching, and a kNN-LM step for
     prompts that are corpus prefixes. The launch counts are set to 0 at
-    its start and read at its end."""
+    its start and read at its end. For an MoE config the assignments its
+    decode steps drop at the capacity are counted."""
+    import dataclasses
+
     import torch
     from repro_torch.common.config import PyramidConfig
     from repro_torch.common.registry import get_arch
@@ -1843,6 +2005,8 @@ def lm_path(dev, arch: str) -> dict:
     spec = LM_SPECS[arch]
     cell = spec["cell"]
     cfg = get_arch(arch)
+    if "num_layers" in cell:        # the cell's only cut: depth
+        cfg = dataclasses.replace(cfg, num_layers=cell["num_layers"])
     corpus_seqs, corpus_len, n_requests, slots, max_seq, max_new, knn_k = (
         cell[k] for k in ("corpus_seqs", "corpus_len", "requests",
                           "slots", "max_seq", "max_new", "knn_k"))
@@ -1857,6 +2021,7 @@ def lm_path(dev, arch: str) -> dict:
                rng.integers(0, cfg.vocab_size, n)
                for i, n in enumerate(lengths)]
     res = {"arch": arch, "dtype": cfg.dtype, "cell": cell,
+           "num_layers": cfg.num_layers,
            "datastore_config": DATASTORE_PYR}
     forwards = 0        # full forwards (prefills) run on this path
     if cfg.attention_kind != AttentionKind.FULL:
@@ -1878,6 +2043,8 @@ def lm_path(dev, arch: str) -> dict:
                                  f"ring case: {res['ring_wraps']}")
 
     reset_launch_counts()
+    torch.cuda.empty_cache()
+    res["allocated_at_start"] = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     params, res["init_s"] = synced(lambda: init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
@@ -1887,7 +2054,8 @@ def lm_path(dev, arch: str) -> dict:
     res["param_bytes"] = sum(t.nbytes for t in leaves)
     log(f"{arch}: {res['params']:,} parameters ({cfg.dtype}, "
         f"{res['param_bytes'] / 1e9:.2f} GB) initialised in "
-        f"{res['init_s']:.2f} s")
+        f"{res['init_s']:.2f} s ({res['allocated_at_start'] / 2**30:.2f} GiB "
+        f"allocated before them)")
 
     batches = [corpus[i:i + cell["ds_batch"]]
                for i in range(0, corpus_seqs, cell["ds_batch"])]
@@ -1927,10 +2095,14 @@ def lm_path(dev, arch: str) -> dict:
     counts0 = launch_counts()
     fwd_in_decode = 0   # forward-kernel launches in steps that admit none
     decode_s, admit_s, steps, profiled = [], [], 0, None
+    masks, restore_route = moe_drop_counter() if cfg.moe else (None, None)
+    step_masks = []     # each decode step's MoE keep masks, a list a step
     t_serve, profiled_s = time.perf_counter(), 0.0
     while batcher.pending or any(a is not None for a in batcher.active):
         admitting = bool(batcher.pending) and None in batcher.active
         before = launch_counts()
+        if masks is not None:
+            masks.clear()
         if not admitting and profiled is None and len(decode_s) >= 8:
             # one decode step under the profiler, left out of the times
             profiled, profiled_s = synced(lambda: device_breakdown(
@@ -1944,7 +2116,24 @@ def lm_path(dev, arch: str) -> dict:
         if not admitting and spec["forward_kernel"]:
             fwd_in_decode += (launch_counts()[spec["forward_kernel"]]
                               - before[spec["forward_kernel"]])
+        if masks and not admitting:
+            step_masks.append(list(masks))
     serve_s = time.perf_counter() - t_serve - profiled_s
+    if restore_route is not None:
+        restore_route()
+        # the assignments each decode step dropped, counted after serving
+        dropped = [sum(int((~m).sum()) for m in ms) for ms in step_masks]
+        del step_masks
+        topk = cfg.moe.experts_per_token
+        res["moe_assignments_per_decode_step"] = \
+            slots * topk * cfg.num_layers
+        res["moe_dropped_per_decode_step"] = {
+            "mean": float(np.mean(dropped)), "min": int(min(dropped)),
+            "max": int(max(dropped)), "steps": len(dropped)}
+        log(f"{arch}: decode steps drop {res['moe_dropped_per_decode_step']}"
+            f" of {res['moe_assignments_per_decode_step']} assignments "
+            f"({slots} slots x top-{topk} x {cfg.num_layers} layers) at the "
+            f"capacity")
     forwards += n_requests
     counts1 = launch_counts()
     serving_launches = {k: counts1[k] - counts0[k] for k in counts1}
@@ -1984,25 +2173,39 @@ def lm_path(dev, arch: str) -> dict:
 
     # 5s / 6s: the same prompts through the streaming engine; even
     # requests are corpus prefixes, whose continuation is recorded
-    conts = {i: corpus[i // 2 % corpus_seqs, n:n + STREAM_MAX_NEW[arch]]
-             for i, n in enumerate(lengths) if i % 2 == 0}
     peak = torch.cuda.max_memory_allocated()
-    res["stream"] = stream_path(arch, params, cfg, ds, prompts, conts, dev,
-                                cell)
-    forwards += n_requests * len(STREAM_RUNS[arch])
-    peak = max([peak] + [r["peak_device_bytes"] for r in
-                         res["stream"].values() if isinstance(r, dict)])
+    if STREAM_RUNS.get(arch):
+        conts = {i: corpus[i // 2 % corpus_seqs, n:n + STREAM_MAX_NEW[arch]]
+                 for i, n in enumerate(lengths) if i % 2 == 0}
+        res["stream"] = stream_path(arch, params, cfg, ds, prompts, conts,
+                                    dev, cell)
+        forwards += n_requests * len(STREAM_RUNS[arch])
+        peak = max([peak] + [r["peak_device_bytes"] for r in
+                             res["stream"].values() if isinstance(r, dict)])
 
     # kNN-LM step: the hidden state at a corpus prefix's last position is
-    # a stored key, so the nearest neighbour's value is the next token
+    # a stored key, so the nearest neighbour's value is the next token. An
+    # MoE layer's capacity depends on the tokens of its dispatch group, so
+    # a prefix's own forward is not the forward that made the key: there
+    # the keys are taken again from the datastore build's forward of the
+    # prefix's corpus batch, and the prefix forwards' hit rate is recorded
     prefix = [(i // 2 % corpus_seqs, int(n)) for i, n in enumerate(lengths)
               if i % 2 == 0]
     hidden = torch.cat([hidden_states(params, cfg, torch.as_tensor(
         corpus[j, :n][None], device=dev))[:, -1] for j, n in prefix])
     forwards += len(prefix)
+    gold = np.array([corpus[j, n] for j, n in prefix])
+    if cfg.moe is not None:
+        b = cell["ds_batch"]
+        res["knn_hit_rate_prefix_forward"] = float(np.mean(knn_probs(
+            ds, hidden.float().cpu().numpy(), k=knn_k,
+            vocab_size=cfg.vocab_size).argmax(-1) == gold))
+        hidden = torch.cat([hidden_states(params, cfg, torch.as_tensor(
+            corpus[j // b * b:j // b * b + b], device=dev))[j % b, n - 1][None]
+            for j, n in prefix])
+        forwards += len(prefix)
     lm_logits = (hidden @ params["lm_head"]).float().cpu().numpy()
     queries = hidden.float().cpu().numpy()
-    gold = np.array([corpus[j, n] for j, n in prefix])
     knn_p, lookup_s = synced(lambda: knn_probs(
         ds, queries, k=knn_k, vocab_size=cfg.vocab_size))
     lookups = [synced(lambda: knn_probs(
@@ -2039,7 +2242,10 @@ def lm_path(dev, arch: str) -> dict:
         f"{res['lm_hit_rate']:.4f}), lookup {res['lookup_ms']:.2f} ms for "
         f"{len(prefix)} queries; through the serving engine ({executors} "
         f"executors) hit rate {hit_client:.4f}, lookup "
-        f"{res['lookup_ms_engine']:.2f} ms; launches {res['launches']} in "
+        f"{res['lookup_ms_engine']:.2f} ms"
+        + (f"; the prefix forwards' own hit rate "
+           f"{res['knn_hit_rate_prefix_forward']:.4f}" if cfg.moe else "")
+        + f"; launches {res['launches']} in "
         f"{forwards} full forwards and {steps} decode steps; peak device "
         f"memory "
         f"{res['peak_device_bytes'] / 2 ** 30:.2f} GiB")
@@ -2123,6 +2329,256 @@ def sliding_path(dev) -> dict:
     if res["phase_s"] > PHASE12_LIMIT_S:
         raise AssertionError(f"phase 12 took {res['phase_s']:.1f} s, over "
                              f"its {PHASE12_LIMIT_S:.0f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: mixture of experts
+# ---------------------------------------------------------------------------
+
+PHASE13_LIMIT_S = 120.0
+# 13a: float32 at the configs' full widths, depth the only cut (phi3.5-moe
+# at 2 of its 32 layers, 11.6 GB; grok-1 at 1 of 64, 26.1 GB): a prefill
+# of batch x prompt_len tokens (one dispatch group), then greedy decode
+# steps (a group of the batch's tokens)
+MOE_CHECKS = {
+    MOE_ARCH: dict(num_layers=2, batch=4, prompt_len=256, steps=16),
+    "grok-1-314b": dict(num_layers=1, batch=4, prompt_len=128, steps=16)}
+# a layer's MoE output against the float64 recomputation of the block from
+# the same input and weights, as a share of its largest |output|: float32
+# matmuls over d = 4,096 to 32,768 terms
+MOE_OUT_TOL = 1e-4
+# 13c: phi3.5-moe at full width, bf16: (arch, batch, seq, steps, depth)
+MOE_TRAIN = (MOE_ARCH, 4, 256, 3, 2)
+
+
+def moe_drop_counter():
+    """Keep the masks of what ``repro_torch.models.moe.route`` keeps at
+    the capacity, to be counted after the timed steps (a reference a
+    call: no launch and no sync inside a step): (the list each call's
+    mask is appended to, a function that restores ``route``)."""
+    from repro_torch.models import moe
+    route = moe.route
+    records = []
+
+    def counted(p, cfg, xt):
+        out = route(p, cfg, xt)
+        records.append(out[3])
+        return out
+
+    moe.route = counted
+
+    def restore():
+        moe.route = route
+    return records, restore
+
+
+def moe_float64(p: dict, cfg, x):
+    """The MoE block's dispatch and output recomputed in float64 from its
+    input x [B, S, D] and layer weights ``p``, one expert at a time:
+    (experts, slots, kept, out). Ties in the top-k go to the lowest
+    expert, as the reference breaks them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.moe import group_and_capacity
+    moe = cfg.moe
+    e, k = moe.num_experts, moe.experts_per_token
+    b, s, d = x.shape
+    group, cap = group_and_capacity(cfg, b * s)
+    ng = b * s // group
+    xt = x.reshape(ng, group, d).double()
+    gates = torch.softmax(xt @ p["router"].double(), dim=-1)
+    top_g, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_g, top_e = top_g[..., :k], top_e[..., :k]
+    top_g = top_g / (top_g.sum(dim=-1, keepdim=True) + 1e-9)
+    onehot = F.one_hot(top_e, e)
+    slots = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(dim=-1)
+    kept = slots < cap
+    out = torch.zeros_like(xt)
+    gi = torch.arange(ng, device=x.device)[:, None, None].expand_as(top_e)
+    ti = torch.arange(group, device=x.device)[None, :, None].expand_as(top_e)
+    for ex in range(e):
+        sel = (top_e == ex) & kept
+        g_, t_, c_ = gi[sel], ti[sel], slots[sel]
+        rows = g_ * cap + c_
+        ex_in = torch.zeros((ng * cap, d), dtype=torch.float64,
+                            device=x.device).index_add(0, rows, xt[g_, t_])
+        h = F.silu(ex_in @ p["e_gate"][ex].double()) * \
+            (ex_in @ p["e_in"][ex].double())
+        y = h @ p["e_out"][ex].double()
+        out.index_put_((g_, t_), top_g[sel][:, None] * y[rows],
+                       accumulate=True)
+    return top_e, slots, kept, out.reshape(b, s, d)
+
+
+def moe_float32_check(dev, arch: str) -> dict:
+    """13a: ``arch`` in float32 at its full width and MOE_CHECKS's depth.
+    Each layer's MoE block in the prefill is held to its float64
+    recomputation from the same input (experts, slots and kept equal; the
+    output within MOE_OUT_TOL of its largest |value|); then the prefill
+    and greedy decode steps through flash-decode are held to the same run
+    through flash-decode's plain version on the card (tokens equal,
+    logits within LM_LOGITS_ATOL). Decode is not held to the full
+    forward: a decode group's capacity differs from the prefill's, so
+    the reference's own decode differs from its forward."""
+    import dataclasses
+
+    import torch
+    from repro_torch.common.registry import get_arch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.decode import decode_step, prefill_step
+    from repro_torch.train import tree as TT
+    spec = MOE_CHECKS[arch]
+    batch, prompt_len, steps = (spec[k] for k in ("batch", "prompt_len",
+                                                  "steps"))
+    full_cfg = get_arch(arch)
+    cfg = dataclasses.replace(full_cfg, dtype="float32",
+                              num_layers=spec["num_layers"])
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+    calls = []
+    block = T.moe_block
+
+    def recorded(p, c, x):
+        out = block(p, c, x)
+        calls.append((p, x.detach().clone(), out[0].detach().clone()))
+        return out
+
+    def run(plain: bool):
+        """Prefill, then greedy decode steps: (logits [B, steps + 1, V],
+        tokens [B, steps + 1], flash-decode launches)."""
+        flash = A.flash_decode
+        if plain:
+            A.flash_decode = lambda q, k, v, pos, window=0: \
+                decode_attention_ref(q.float(), k, v, pos, window)
+        before = launch_counts()["decode_attention"]
+        try:
+            logits, cache = prefill_step(params, prompt, cfg=cfg)
+            cache = T.grow_cache(cache, prompt_len + steps)
+            out = [logits[:, -1].float()]
+            toks = [torch.argmax(out[0], dim=-1)]
+            for i in range(steps):
+                pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
+                                 device=dev)
+                nxt, lg, cache = decode_step(params, cache, toks[-1][:, None],
+                                             pos, cfg=cfg)
+                out.append(lg.float().reshape(batch, -1))
+                toks.append(nxt.long())
+        finally:
+            A.flash_decode = flash
+        return (torch.stack(out, dim=1), torch.stack(toks, dim=1),
+                launch_counts()["decode_attention"] - before)
+
+    T.moe_block = recorded
+    try:
+        logits, cache = prefill_step(params, prompt, cfg=cfg)
+    finally:
+        T.moe_block = block
+    del logits, cache
+
+    def layer_check(p, x, out) -> dict:
+        experts, slots, kept, want = moe_float64(p, cfg, x)
+        group, _ = M.group_and_capacity(cfg, x.shape[0] * x.shape[1])
+        _, e32, s32, k32, _ = M.route(p, cfg, x.reshape(-1, group,
+                                                        x.shape[-1]))
+        scale = float(want.abs().max())
+        return {"tokens": int(x.shape[0] * x.shape[1]),
+                "dispatch_equal": bool(torch.equal(e32, experts)
+                                       and torch.equal(s32, slots)
+                                       and torch.equal(k32, kept)),
+                "dropped": int((~kept).sum()),
+                "assignments": int(kept.numel()),
+                "out_err_share": float((out.double() - want).abs().max())
+                / max(scale, 1e-30),
+                "out_scale": scale}
+    # the recorded layers' weights are views of the whole stacks: none is
+    # left bound once the checks are done
+    layers = [layer_check(*c) for c in calls]
+    calls.clear()
+    got, toks, launched = run(plain=False)
+    want, want_toks, plain_launched = run(plain=True)
+    res = {"arch": arch, "num_layers": cfg.num_layers, "batch": batch,
+           "prompt_len": prompt_len, "steps": steps,
+           "cut": {"num_layers": f"{full_cfg.num_layers} -> "
+                                 f"{cfg.num_layers}"},
+           "params": sum(t.numel() for t in TT.leaves(params)),
+           "layers": layers,
+           "decode_max_abs_err": float((got - want).abs().max()),
+           "logit_scale": float(want.abs().max()),
+           "tokens_equal": bool(torch.equal(toks, want_toks)),
+           "flash_decode_launches": launched,
+           "plain_run_flash_decode_launches": plain_launched,
+           "seconds": time.perf_counter() - t0}
+    log(f"13a {arch} float32 ({cfg.num_layers} layers, {res['params']:,} "
+        f"parameters): MoE layers against float64 {layers}; prefill and "
+        f"{steps} decode steps through flash-decode against its plain "
+        f"version: max abs err {res['decode_max_abs_err']:.3g} (|logits| <= "
+        f"{res['logit_scale']:.2f}), tokens equal {res['tokens_equal']}, "
+        f"flash-decode launches {launched} (plain run {plain_launched}); "
+        f"{res['seconds']:.1f} s")
+    del params, got, want
+    torch.cuda.empty_cache()
+    if not all(r["dispatch_equal"] and r["out_err_share"] <= MOE_OUT_TOL
+               for r in layers) or len(layers) != cfg.num_layers \
+            or res["decode_max_abs_err"] > LM_LOGITS_ATOL \
+            or not res["tokens_equal"] \
+            or launched != cfg.num_layers * steps or plain_launched:
+        raise AssertionError(f"13a {arch}: {res}")
+    return res
+
+
+def moe_path(dev) -> dict:
+    """Phase 13: mixture of experts. 13a the float32 checks of
+    phi3.5-moe-42b-a6.6b (depth 2) and grok-1-314b (depth 1) at their
+    full widths; 13b phi3.5-moe's kNN-LM serving at full width in bf16,
+    depth 16 of 32 (:func:`lm_path`: a 1,024-key datastore at d = 4,096,
+    16 requests in 8 slots, 32 new tokens, flash-decode 16 times a step
+    and its plain version never on the card, the assignments dropped at
+    the capacity in each decode step); 13c phi3.5-moe's train step at full
+    width, depth 2, bf16 (every leaf's gradient non-zero at step 1, the
+    aux loss finite and positive), and the reduced config card against
+    CPU and the reference test's 60-step run. The launch counts are those
+    of 13b; the phase raises past PHASE13_LIMIT_S."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    res = {"float32_check": {arch: moe_float32_check(dev, arch)
+                             for arch in MOE_CHECKS}}
+    calls, restore = counting_plain_decode()
+    try:
+        res["serving"] = lm_path(dev, MOE_ARCH)
+    finally:
+        restore()
+    res["plain_decode_calls"] = dict(calls)
+    res["launches"] = res["serving"]["launches"]
+    arch, batch, seq, steps, depth = MOE_TRAIN
+    res["train"] = train_full_width(dev, arch, batch, seq, steps,
+                                    num_layers=depth)
+    checks = {}
+    try:
+        mesh = make_local_mesh("cuda")
+        res["train_card_vs_cpu"] = train_card_vs_cpu(dev, arch, mesh, checks)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13: launches {res['launches']}; plain flash-decode calls "
+        f"{res['plain_decode_calls']}; {res['phase_s']:.1f} s")
+    if calls.get("cuda", 0):
+        raise AssertionError(f"phase 13: flash-decode's plain version ran "
+                             f"on the card {calls['cuda']} times")
+    if res["phase_s"] > PHASE13_LIMIT_S:
+        raise AssertionError(f"phase 13 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE13_LIMIT_S:.0f} s")
     return res
 
 
@@ -2406,8 +2862,10 @@ def online_updates(root: str):
     cfg = PyramidConfig(num_shards=16, meta_size=64, sample_size=n)
     out = {"n": n, "d": d, "clusters": UPDATES_CLUSTERS,
            "config": cfg.__dict__, "cuts": UPDATES_CUTS}
+    # in this process: 16 shards of some 64 rows build sooner than a pool
+    # of spawned workers starts; the index is the same either way
     t0 = time.perf_counter()
-    index = build_pyramid_index_parallel(x, cfg, workers=os.cpu_count() or 1)
+    index = build_pyramid_index_parallel(x, cfg, workers=0)
     out["build_s"] = time.perf_counter() - t0
     out["sub_sizes"] = [g.n for g in index.subs]
     t0 = time.perf_counter()
@@ -3313,14 +3771,16 @@ def _step_grads(params, cfg, b, dev) -> tuple:
 
 
 def train_full_width(dev, arch: str, batch: int, seq: int,
-                     steps: int) -> dict:
+                     steps: int, num_layers: int = 0) -> dict:
     """11a / 11b: ``train_step`` at full width. Losses and gradient norms
     finite, every leaf's gradient non-zero at step 1 (its first moment
     after the step, (1 - b1) times the clipped gradient), the launches of
     the port's kernels exact: under remat each Mamba2 layer runs the
     forward scan twice a step and its backward once, and nothing else. A
     bf16 slice of mamba2's trained parameters goes through a checkpoint
-    and back, bit for bit."""
+    and back, bit for bit. ``num_layers`` cuts the depth (phase 13c); an
+    MoE config's aux loss must be finite and positive at every step."""
+    import dataclasses
     import shutil
     import tempfile
     import torch
@@ -3334,6 +3794,8 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.train_step import train_step
     cfg = get_arch(arch)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3344,15 +3806,17 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
                       total_steps=steps)
     data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=0))
     out = {"batch": batch, "seq": seq, "steps": steps, "dtype": cfg.dtype,
+           "num_layers": cfg.num_layers,
            "params": sum(t.numel() for t in TT.leaves(params))}
     before = launch_counts()
-    losses, norms, times = [], [], []
+    losses, norms, times, auxs = [], [], [], []
     for i in range(steps):
         b = _batch_on(next(data), dev)
         (params, state, m), t = synced(lambda: train_step(
             params, state, b, cfg=cfg, opt_cfg=opt))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+        auxs.append(float(m["aux_loss"]))
         times.append(t)
         if i == 0:
             out["leaves"] = len(TT.leaves(state.mu))
@@ -3362,7 +3826,8 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
     out["launches"] = {k: n - before[k] for k, n in launch_counts().items()}
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     mean_s = float(np.mean(times[1:]))
-    out.update(losses=losses, grad_norms=norms, step_s=times,
+    out.update(losses=losses, grad_norms=norms, aux_losses=auxs,
+               step_s=times,
                step_s_mean=mean_s, tokens_per_s=batch * seq / mean_s)
     mamba = sum(k == BlockKind.MAMBA2 for k in cfg.layer_kinds())
     want = {k: 0 for k in out["launches"]}
@@ -3387,7 +3852,8 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
     log(f"11 {arch} full width ({out['params'] / 1e9:.3f} B params, "
         f"{cfg.dtype}, batch {batch} x {seq}): losses "
         f"{[round(v, 4) for v in losses]}, grad norms "
-        f"{[round(v, 4) for v in norms]}; step {mean_s * 1e3:.1f} ms after "
+        f"{[round(v, 4) for v in norms]}, aux {[round(v, 4) for v in auxs]};"
+        f" step {mean_s * 1e3:.1f} ms after "
         f"the first ({times[0] * 1e3:.1f} ms), {out['tokens_per_s']:.0f} "
         f"tokens/s, peak {out['peak_bytes'] / 2**30:.2f} GiB; launches "
         f"{ {k: v for k, v in out['launches'].items() if v} }; leaves "
@@ -3396,7 +3862,10 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
         + (f"; bf16 checkpoint of {out['bf16_checkpoint_leaves']} leaves "
            f"equal {out['bf16_checkpoint_equal']}" if "bf16_checkpoint_equal"
            in out else ""))
+    moe_aux_ok = cfg.moe is None or (np.isfinite(auxs).all()
+                                     and min(auxs) > 0)
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()) \
+            or not moe_aux_ok \
             or out["leaves_without_gradient"] or out["launches"] != want \
             or not out.get("bf16_checkpoint_equal", True):
         raise AssertionError(f"11 {arch} full width: {out} (launches "
@@ -3471,30 +3940,47 @@ def train_card_vs_cpu(dev, arch: str, mesh, checks: dict) -> dict:
     return out
 
 
-def train_launcher(dev) -> dict:
-    """11d: ``python -m repro_torch.launch.train`` in a subprocess on the
-    card; its checkpoint loads back to the parameters and moments the
-    process held (the digests it logged), with the manifest's step."""
-    import shutil
+LAUNCHER_ARCH = "mamba2-780m"
+
+
+def start_train_launcher() -> dict:
+    """11d, started: ``python -m repro_torch.launch.train`` in a
+    subprocess on the card (it trains the reduced config)."""
     import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    out = open(os.path.join(tmp, "launcher.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         LAUNCHER_ARCH, "--reduced", "--steps", str(LAUNCHER_STEPS), "--ckpt",
+         os.path.join(tmp, "ckpt"), "--device", "cuda"], env=env,
+        stdout=out, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "dir": tmp, "out": out, "t0": time.perf_counter()}
+
+
+def train_launcher(dev, started: dict) -> dict:
+    """11d: the launcher of :func:`start_train_launcher` waited for; its
+    checkpoint loads back to the parameters and moments the process held
+    (the digests it logged), with the manifest's step."""
+    import shutil
     from repro_torch.common.registry import get_arch
     from repro_torch.train.checkpoint import load_checkpoint, tree_digest
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_step import abstract_params
-    arch = "mamba2-780m"
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    arch, proc = LAUNCHER_ARCH, started["proc"]
+    tmp = os.path.join(started["dir"], "ckpt")
     try:
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
-                                   if p]))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-             "--reduced", "--steps", str(LAUNCHER_STEPS), "--ckpt", tmp,
-             "--device", "cuda"], env=env, capture_output=True, text=True,
-            timeout=300)
-        run_s = time.perf_counter() - t0
-        text = proc.stdout + proc.stderr
+        try:
+            proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        run_s = time.perf_counter() - started["t0"]
+        started["out"].seek(0)
+        text = started["out"].read()
+        started["out"].close()
         if proc.returncode != 0:
             raise AssertionError(f"11d: the launcher failed "
                                  f"({proc.returncode}):\n{text[-3000:]}")
@@ -3506,7 +3992,7 @@ def train_launcher(dev) -> dict:
                   tree_digest(state.nu))
         losses = [float(v) for v in re.findall(r"loss=([0-9.]+)", text)]
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(started["dir"], ignore_errors=True)
     out = {"run_s": run_s, "step": step, "opt_step": int(state.step),
            "digests_equal": logged is not None and logged.groups() == loaded,
            "logged_losses": losses}
@@ -3543,7 +4029,9 @@ def training_path() -> dict:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    res["launcher"] = train_launcher(dev)
+    # the launcher after the timed steps and the CPU runs: it shares
+    # neither the card nor the host's cores with them
+    res["launcher"] = train_launcher(dev, start_train_launcher())
     res["launches"] = {name: n - checks.get(name, 0)
                        for name, n in launch_counts().items()}
     res["check_launches"] = checks
@@ -3590,7 +4078,10 @@ def summary_row(rows: list) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=50_000,
+    # 32,000 rows: the int8 scan's near ties at this N hold with the
+    # kernel's fixed-point pieces (phase 2's error row), and the smaller
+    # build pays for phase 13
+    ap.add_argument("--n", type=int, default=32_000,
                     help="dataset rows of the Pyramid path (phase 4)")
     args = ap.parse_args()
 
@@ -3632,6 +4123,7 @@ def main() -> int:
     result["multi_device"] = multi_device_path(state)
     result["training"] = training_path()
     result["lm_sliding"] = sliding_path(dev)
+    result["lm_moe"] = moe_path(dev)
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -3644,7 +4136,8 @@ def main() -> int:
             "launches": sum(result[phase]["launches"][name] for phase in
                             ("main_path", "lm_path", "ssm_path",
                              "serving", "store", "maintenance",
-                             "multi_device", "training", "lm_sliding")),
+                             "multi_device", "training", "lm_sliding",
+                             "lm_moe")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -3,7 +3,7 @@ quant_distance.cu) against another revision of its source, on one CUDA
 card, in one process.
 
     python3 scripts/quant_variants.py [--other FILE ...] [--rounds 6]
-        [--n 50000] [--check-only] [--profile]
+        [--n 50000] [--check-only] [--profile] [--error-n N]
 
 FILE is an earlier revision of the source, saved with ``git show
 REV:src/repro_torch/csrc/quant_distance.cu > _parent/quant_distance.cu``
@@ -26,7 +26,11 @@ tensor the size of the output (the card's write rate) are timed once a row.
 The ``--other`` files are named ``other``, ``other1``, ... .
 ``--profile`` also builds the tree with ``-DQUANT_PROFILE`` and reports
 the cycles of each phase of its producer and consumer warps at phase 4's
-shape. ``--check-only`` stops after the checks. Prints the card's name and power limit, then one
+shape. ``--check-only`` stops after the checks. ``--error-n N`` also runs each
+version through chip_smoke.py's error row (``quant_error_row``: l2
+scores against float64 on phase 4's data at N rows, on each query's top
+10 rows and over all rows, and query 45's near tie) and records whether
+it passes the row's gate. Prints the card's name and power limit, then one
 JSON object a row, and writes them to
 ``chiprun_out/quant_variants.json``.
 """
@@ -241,6 +245,8 @@ def main() -> int:
                     help="rows of phase 4's brute-force scan shape")
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--error-n", type=int, default=0,
+                    help="rows of phase 4's data for the error row")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -267,6 +273,13 @@ def main() -> int:
                 ln.strip() for ln in text.splitlines()
                 if any(w in ln for w in ("registers", "spill", "arning"))))
         result["checks"] = check_rows(variants)
+        if args.error_n:
+            result["error_rows"] = {
+                name: chip_smoke.quant_error_row(
+                    torch.device("cuda"), args.error_n, scores=fn)
+                for name, fn in variants.items()}
+            chip_smoke.log(json.dumps({name: row["passes"] for name, row
+                                       in result["error_rows"].items()}))
         if not args.check_only:
             result["rows"] = timed_rows(variants, args.n, args.rounds)
         if args.profile:

@@ -77,7 +77,8 @@ LM_TOP_KEYS = ("embedding", "final_norm", "lm_head")
 # the keys of each ported layer group, stacked on a leading layer axis
 LM_LAYER_KEYS = {
     "attention": ("norm_attn", "norm_mlp", "w_q", "w_k", "w_v", "w_o",
-                  "q_norm", "k_norm", "w_gate", "w_in", "w_out"),
+                  "q_norm", "k_norm", "w_gate", "w_in", "w_out",
+                  "router", "e_gate", "e_in", "e_out"),
     "mamba2": ("norm_in", "in_proj", "bc_proj", "dt_w", "dt_bias", "a_log",
                "d_skip", "conv_w", "conv_b", "ssm_norm", "out_proj"),
 }
@@ -99,7 +100,7 @@ def lm_params_from_reference(params: Mapping, cfg: ArchConfig,
     the top, and each layer group's weights (``blocks/attention``,
     ``blocks/mamba2``; ``LM_LAYER_KEYS``) with their leading layer axis.
     Every array keeps its dtype (the Mamba2 ``a_log``, ``dt_bias`` and
-    ``d_skip`` stay float32 in a bf16 model). Other groups and keys are
+    ``d_skip`` and the MoE ``router`` stay float32 in a bf16 model). Other groups and keys are
     not ported yet and raise."""
     from repro_torch.models.transformer import _check_ported
     dev = resolve_device(device)

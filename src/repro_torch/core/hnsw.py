@@ -171,6 +171,9 @@ class _Builder:
         self.rng = np.random.default_rng(seed)
         self.ml = 1.0 / np.log(max(m, 2))
         self.data = np.zeros((capacity, d), dtype=np.float32)
+        # l2: each row's squared norm, summed once as ``similarity_matrix_np``
+        # sums it on every call (the same values, bit for bit)
+        self.sqn = np.zeros(capacity, dtype=np.float32)
         self.levels = np.zeros(capacity, dtype=np.int32)
         self.n = 0
         self.entry = -1
@@ -184,9 +187,23 @@ class _Builder:
             self.adj.append(
                 np.full((self.data.shape[0], m), -1, dtype=np.int32))
 
+    def _sims(self, node: int, rows) -> np.ndarray:
+        """Similarities [len(rows)] of stored row ``node`` to stored rows
+        ``rows``: ``similarity_matrix_np``'s arithmetic, with l2's squared
+        norms taken from ``sqn``."""
+        rows = np.asarray(rows)
+        if self.metric != "l2":
+            return M.similarity_matrix_np(self.data[node][None, :],
+                                          self.data[rows], self.metric)[0]
+        q = self.data[node:node + 1]
+        return (2.0 * q @ self.data[rows].T - self.sqn[node:node + 1, None]
+                - self.sqn[rows][None, :])[0]
+
     def _search_layer(self, q: np.ndarray, entry_points: List[Tuple[float, int]],
-                      level: int, ef: int) -> List[Tuple[float, int]]:
-        """Alg. 1 Search-Level. Returns up to ef (sim, id) best-first."""
+                      level: int, ef: int,
+                      qnode: Optional[int] = None) -> List[Tuple[float, int]]:
+        """Alg. 1 Search-Level. Returns up to ef (sim, id) best-first;
+        ``qnode``: q is that stored row (its norm is cached)."""
         visited = set()
         cand: List[Tuple[float, int]] = []   # max-heap via negated sim
         best: List[Tuple[float, int]] = []   # min-heap of (sim, id)
@@ -208,8 +225,9 @@ class _Builder:
                 continue
             visited.update(fresh)
             fresh_arr = np.asarray(fresh, dtype=np.int64)
-            sims = M.similarity_matrix_np(
-                q[None, :], self.data[fresh_arr], self.metric)[0]
+            sims = self._sims(qnode, fresh_arr) if qnode is not None else \
+                M.similarity_matrix_np(q[None, :], self.data[fresh_arr],
+                                       self.metric)[0]
             for v, s in zip(fresh, sims):
                 s = float(s)
                 if len(best) < ef or s > best[0][0]:
@@ -218,6 +236,27 @@ class _Builder:
                     if len(best) > ef:
                         heapq.heappop(best)
         return sorted(best, reverse=True)
+
+    def _pair_bounds(self, ids: List[int]):
+        """Lower and upper bounds [k, k] on the float32 similarities
+        ``_sims`` gives between rows ``ids``: each pair's similarity in
+        float64 (exact products of the float32 rows) less and plus twice
+        the float32 rounding bound of any summation order, gamma_(d+4) *
+        (|a| + |b|)^2 for l2 and gamma_(d+4) * |a| |b| for ip, with gamma_n
+        = n u / (1 - n u) and u = 2^-24."""
+        x = self.data[np.asarray(ids)].astype(np.float64)
+        g = x @ x.T
+        sq = np.diag(g).copy()
+        nrm = np.sqrt(sq)
+        if self.metric == "l2":
+            sim = 2.0 * g - sq[:, None] - sq[None, :]
+            w = nrm[:, None] + nrm[None, :]
+            w *= w
+        else:
+            sim, w = g, np.outer(nrm, nrm)
+        nu = (self.data.shape[1] + 4) * 2.0 ** -24
+        w *= 2.0 * nu / (1.0 - nu)
+        return sim - w, sim + w
 
     def _select_heuristic(self, q: np.ndarray,
                           cand: List[Tuple[float, int]], m: int) -> List[int]:
@@ -228,19 +267,34 @@ class _Builder:
         long-range edges between clusters — without it, well-separated
         clusters become disconnected graph components and recall collapses.
         Pruned candidates backfill remaining slots (keepPrunedConnections).
+
+        Under l2 and ip a comparison is first decided from the candidates'
+        pairwise similarities in float64 and their float32 rounding bounds
+        (:meth:`_pair_bounds`); only a candidate within its bound of a
+        selected one asks for the float32 similarities, so the choices
+        are those of the float32 comparisons alone.
         """
         ordered = sorted(cand, reverse=True)
+        bounded = self.metric in ("l2", "ip") and len(ordered) > 1
+        if bounded:
+            lo, hi = self._pair_bounds([v for _, v in ordered])
+            # each candidate's largest bound over the selected ones
+            top_lo = np.full(len(ordered), -np.inf)
+            top_hi = np.full(len(ordered), -np.inf)
         selected: List[int] = []
-        for sim, v in ordered:
+        for i, (sim, v) in enumerate(ordered):
             if len(selected) == m:
                 break
             if selected:
-                sims_to_sel = M.similarity_matrix_np(
-                    self.data[v][None, :],
-                    self.data[np.asarray(selected)], self.metric)[0]
-                if np.any(sims_to_sel > sim):
+                if bounded and top_lo[i] > sim:
+                    continue
+                if (not bounded or top_hi[i] > sim) and \
+                        (self._sims(v, selected) > sim).any():
                     continue
             selected.append(v)
+            if bounded:
+                np.maximum(top_lo, lo[i], out=top_lo)
+                np.maximum(top_hi, hi[i], out=top_hi)
         if len(selected) < m:
             chosen = set(selected)
             for _, v in ordered:
@@ -263,8 +317,7 @@ class _Builder:
                 row[slot[0]] = node
             else:
                 cand_ids = np.append(row, node)
-                sims = M.similarity_matrix_np(
-                    self.data[v][None, :], self.data[cand_ids], self.metric)[0]
+                sims = self._sims(v, cand_ids)
                 keep = self._select_heuristic(
                     self.data[v], list(zip(sims.tolist(), cand_ids.tolist())), m)
                 adj[v] = np.asarray(keep, dtype=np.int32)
@@ -272,6 +325,8 @@ class _Builder:
     def add(self, x: np.ndarray) -> int:
         node = self.n
         self.data[node] = x
+        row = self.data[node:node + 1]
+        self.sqn[node] = np.sum(row * row, axis=-1)[0]
         level = int(-np.log(self.rng.uniform(low=1e-12, high=1.0)) * self.ml)
         self.levels[node] = level
         self._ensure_level(level)
@@ -281,14 +336,13 @@ class _Builder:
             self.max_level = level
             return node
         # greedy descent through layers above `level` (search factor 1)
-        sim_e = float(M.similarity_matrix_np(
-            x[None, :], self.data[self.entry][None, :], self.metric)[0, 0])
+        sim_e = float(self._sims(node, [self.entry])[0])
         eps = [(sim_e, self.entry)]
         for l in range(self.max_level, level, -1):
-            eps = self._search_layer(x, eps, l, ef=1)[:1]
+            eps = self._search_layer(x, eps, l, ef=1, qnode=node)[:1]
         # insert with beam efC in layers min(level, max_level)..0
         for l in range(min(level, self.max_level), -1, -1):
-            found = self._search_layer(x, eps, l, ef=self.efc)
+            found = self._search_layer(x, eps, l, ef=self.efc, qnode=node)
             m = self.m0 if l == 0 else self.mu
             nbrs = self._select_heuristic(x, found, m)
             self._connect(node, nbrs, l)

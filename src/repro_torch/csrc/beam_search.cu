@@ -40,7 +40,12 @@
 //     reads its share of the query (and of the int8 grid) once for all of
 //     them, the rows' loads and 3-step shuffle reductions interleave. A
 //     lane sums 4 products at a time and adds those partials pairwise, the
-//     same depth of sums as one lane a float4 and a warp-wide tree.
+//     same depth of sums as one lane a float4 and a warp-wide tree. From
+//     a lane's sum of a pass on, everything is float64: the 3-step shuffle
+//     reduction, the slices' sums, |q|^2 and the metric, rounded to
+//     float32 once. At the kNN-LM widths |q|^2 and |x|^2 reach d ~ 4,096,
+//     where float32 sums of the lanes and slices part from the exact score
+//     by up to an ulp of it and reorder rows that float64 parts by less.
 //   * The new candidates are first cut at the beam's ef-th score (only a
 //     strictly better one can enter: the beam wins ties), then the
 //     survivors are sorted by a warp-wide bitonic sort on (score desc,
@@ -116,8 +121,8 @@ struct Layout {
     zr = o;     o = align16(o + (quant ? 4 * (size_t)d : 0));
     beam = o;   o = align16(o + sizeof(Entry) * (size_t)efp);
     vnode = o;  o = align16(o + 4 * (size_t)M0);
-    vdot = o;   o = align16(o + 4 * (size_t)M0);
-    vnrm = o;   o = align16(o + 4 * (size_t)M0);
+    vdot = o;   o = align16(o + 8 * (size_t)M0);
+    vnrm = o;   o = align16(o + 8 * (size_t)M0);
     adj = o;    o = align16(o + 4 * (size_t)M0);
     cand = o;   o = align16(o + sizeof(Entry) * 32);
     ctrl = o;   o = align16(o + 16);
@@ -158,16 +163,18 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-__device__ __forceinline__ float finish_score(int metric, float dot, float xn, float qn) {
-  if (metric == 0) return 2.0f * dot - qn - xn;                     // l2
-  if (metric == 1) return dot;                                       // ip
-  return dot / ((sqrtf(qn) + 1e-12f) * (sqrtf(xn) + 1e-12f));        // angular
+// the metric from float64 sums, rounded to float32 once
+__device__ __forceinline__ float finish_score(int metric, double dot, double xn,
+                                              double qn) {
+  if (metric == 0) return (float)(2.0 * dot - qn - xn);                 // l2
+  if (metric == 1) return (float)dot;                                    // ip
+  return (float)(dot / ((sqrt(qn) + 1e-12) * (sqrt(xn) + 1e-12)));       // angular
 }
 
 // Copies columns [c0, c0 + nc) of rows vnode[r0 .. r0 + nr) of the graph
@@ -243,13 +250,13 @@ __device__ __forceinline__ void row_partial_scalar(const unsigned char* row, int
 // grid, once for all of them); adds the dot products and squared norms
 // into vdot / vnrm (stores them for the first slice). A lane sums four
 // products at a time and adds those partials pairwise: its float4 chunks
-// l, l+8, l+16, l+24 of each 128 columns, or its chunk l of 16 codes. All
-// threads take part.
+// l, l+8, l+16, l+24 of each 128 columns, or its chunk l of 16 codes; the
+// lanes' sums meet in float64. All threads take part.
 template <bool kInt8, bool kVec, int kRows>
 __device__ void score_pass(const Params& p, const unsigned char* stage, int r0,
                            int nr, int c0, int nc, const float* q,
-                           const float* sc, const float* zr, float* vdot,
-                           float* vnrm, bool first, int tid, int nthreads) {
+                           const float* sc, const float* zr, double* vdot,
+                           double* vnrm, bool first, int tid, int nthreads) {
   constexpr int elem = kInt8 ? 1 : 4;
   const int l = tid & (kGroup - 1);
   const int gid = tid / kGroup, ngroups = nthreads / kGroup;
@@ -330,12 +337,18 @@ __device__ void score_pass(const Params& p, const unsigned char* stage, int r0,
       for (int t = 0; t < kRows; ++t)
         row_partial_scalar<kInt8>(rows[t], c0, nc, q, sc, zr, l, dot[t], nrm[t]);
     }
+    double dd[kRows], dn[kRows];
+#pragma unroll
+    for (int t = 0; t < kRows; ++t) {
+      dd[t] = dot[t];
+      dn[t] = nrm[t];
+    }
 #pragma unroll
     for (int o = kGroup / 2; o > 0; o >>= 1) {
 #pragma unroll
       for (int t = 0; t < kRows; ++t) {
-        dot[t] += __shfl_xor_sync(kFull, dot[t], o);
-        nrm[t] += __shfl_xor_sync(kFull, nrm[t], o);
+        dd[t] += __shfl_xor_sync(kFull, dd[t], o);
+        dn[t] += __shfl_xor_sync(kFull, dn[t], o);
       }
     }
     if (l == 0) {
@@ -343,8 +356,8 @@ __device__ void score_pass(const Params& p, const unsigned char* stage, int r0,
       for (int t = 0; t < kRows; ++t) {
         const int r = r0 + rb + gid + t * ngroups;
         if (rb + gid + t * ngroups < nr) {
-          vdot[r] = first ? dot[t] : vdot[r] + dot[t];
-          vnrm[r] = first ? nrm[t] : vnrm[r] + nrm[t];
+          vdot[r] = first ? dd[t] : vdot[r] + dd[t];
+          vnrm[r] = first ? dn[t] : vnrm[r] + dn[t];
         }
       }
     }
@@ -359,7 +372,7 @@ template <bool kInt8, bool kVec>
 __device__ void gather_score(const Params& p, long long gbase, const int* vnode,
                              int nv, unsigned char* stage0, unsigned char* stage1,
                              const float* q, const float* sc, const float* zr,
-                             float* vdot, float* vnrm, int tid, int nthreads) {
+                             double* vdot, double* vnrm, int tid, int nthreads) {
   const int nslices = (p.d + p.slice - 1) / p.slice;
   const int passes = nslices * ((nv + p.stage_rows - 1) / p.stage_rows);
   const bool two = p.stage_buffers == 2;
@@ -477,8 +490,8 @@ __global__ void __launch_bounds__(128, 4) beam_walk_kernel(Params p) {
   float* zr = reinterpret_cast<float*>(smem + L.zr);
   Entry* beam = reinterpret_cast<Entry*>(smem + L.beam);
   int* vnode = reinterpret_cast<int*>(smem + L.vnode);
-  float* vdot = reinterpret_cast<float*>(smem + L.vdot);
-  float* vnrm = reinterpret_cast<float*>(smem + L.vnrm);
+  double* vdot = reinterpret_cast<double*>(smem + L.vdot);
+  double* vnrm = reinterpret_cast<double*>(smem + L.vnrm);
   int* adjbuf = reinterpret_cast<int*>(smem + L.adj);
   Entry* cand = reinterpret_cast<Entry*>(smem + L.cand);
   volatile int* ctrl = reinterpret_cast<volatile int*>(smem + L.ctrl);
@@ -502,10 +515,10 @@ __global__ void __launch_bounds__(128, 4) beam_walk_kernel(Params p) {
     for (int i = tid; i < p.words; i += nthreads) vis[i] = 0u;
   }
   __syncthreads();
-  float qn = 0.f;
+  double qn = 0.0;
   if (warp == 0) {
-    float part = 0.f;
-    for (int e = lane; e < p.d; e += 32) part += q[e] * q[e];
+    double part = 0.0;
+    for (int e = lane; e < p.d; e += 32) part += (double)q[e] * q[e];
     qn = warp_sum(part);
     if (lane == 0) {
       atomicOr(&vis[entry >> 5], 1u << (entry & 31));

@@ -22,19 +22,30 @@
 //
 // Precision. q.x = sum_k u_k c_k + q.z, with u = q o scale (one rounded
 // multiply a column). An int8 code is an integer in [-128, 127], exact in
-// bf16. u is split into three bf16 pieces, u1 = bf16(u), u2 = bf16(u -
-// u1), u3 = bf16(u - u1 - u2), which carry all 24 bits of u (u1 + u2 + u3
-// = u). A piece times a code is exact in float32, so only the sums round,
-// and the split's one multiply u = q * scale. The only difference from the
-// plain version is where x's rounding enters the dot product: the plain
-// version sums q_k * x_k with x_k = fl(fl(c_k s_k) + z_k); here c_k s_k and
-// z_k meet q separately. |x|^2 is summed from the rounded x_k, as the plain
-// version does. The tensor cores' float32 sums round toward zero, so a
-// long row is not summed in one accumulator: each slice of 128 columns
-// starts from zero and the slices meet in float32, rounded to nearest.
-// Measured on the card, the largest error is about 1e-6 of the largest
-// |score| (the gate is 1e-5) at d = 128 and at d = 2,048.
-//
+// bf16. The tensor cores round each product's float32 sum toward zero, so
+// a dot product chained through one accumulator drifts by up to an ulp of
+// the running sum an instruction (about 1.2e-4 at |q|^2 ~ 128 over the 24
+// products of d = 128, enough to swap rows 3.4e-5 apart). The query side
+// is therefore split in fixed point: each query's u is scaled by one power
+// of two, v = u 2^-E with |v| < 1 (E from the largest |u_k| of the row),
+// and v is cut into three pieces on fixed grids, v1 = rint(v 2^8) 2^-8,
+// v2 = rint((v - v1) 2^16) 2^-16, v3 = rint((v - v1 - v2) 2^24) 2^-24,
+// each an integer of at most 8 bits on its grid (exact in bf16), together
+// within 2^-25 of v. A product v1 c is an integer times 2^-8 of at most
+// 15 bits, so the sum of 128 of them (22 bits) is exact in float32 in any
+// order and under any rounding: v1 has an accumulator of its own, chained
+// over the slice's k-steps, and is exact. v2 and v3 share a second one,
+// 2^-8 as large, whose truncations are below 2^-30 of the dot product.
+// The epilogue joins them with the norms without a rounding at the scale
+// of |q|^2 where the scores are near: |q|^2, q.z and |x|^2 (from the
+// rounded x_k, as the plain version rounds them) are summed in float64;
+// T = 2^(E+1) times the v1 sum is exact and a multiple of 2^(E-7), and
+// |q|^2 is held as its nearest multiple of 2^(E-7) plus a remainder, so
+// T - |q|^2 is exact, and minus |x|^2 it is exact again wherever the score
+// is small against |x|^2 (Sterbenz); the small terms (2^(E+1) times the
+// v2, v3 sum, 2 q.z, the remainders) join last. Slices of 128 columns (d
+// > 128) still meet in float32, rounded to nearest.
+
 // Design: one persistent block an SM, warp-specialized, tensor copies in
 // and out.
 //   * A block of 12 warps owns 128 queries and walks row tiles of 64 rows,
@@ -58,22 +69,25 @@
 //     halves of 64 columns, rows of 128 bytes, 16-byte chunk c of row r at
 //     c ^ (r % 8)): a code pair becomes a bf16 pair in four instructions (a
 //     byte permute, two masks, one bf16x2 fma; exact). The same threads sum
-//     |x|^2 of their half rows from the rounded x_k (l2 and angular); the
-//     halves meet in a shuffle.
+//     |x|^2 of their half rows in float64 from the rounded x_k (l2 and
+//     angular); the halves meet in a shuffle, and the row keeps |x|^2 as a
+//     float32 pair (high, low).
 //   * Named barriers pass the bf16 tiles: full (producer -> each consumer
 //     warpgroup) and empty (each consumer warpgroup -> producer).
 //   * Products: `wgmma` m64n64k16 bf16 -> float32, A (the query pieces)
 //     from registers, B (the bf16 codes) from shared memory. The two
 //     consumer warpgroups take turns (ping-pong): one issues its 24
-//     products of a stage while the other runs its epilogue. For each
-//     accumulator the order is: k-steps of 16 in order, and within a
-//     k-step the pieces smallest first (u3, u2, u1).
-//   * |q|^2 and q.z are one float32 value a query, summed once per block
+//     products of a stage while the other runs its epilogue. The k-steps
+//     of 16 go in order; within one, v3 and v2 into the small accumulator,
+//     then v1 into its own.
+//   * The largest |u_k|, |q|^2 and q.z of a query are found once per block
 //     by the four lanes of a quad over their fragment columns (slice by
-//     slice, k-step by k-step, columns 2t, 2t + 1, 2t + 8, 2t + 9), then
-//     reduced across the quad (lanes t, t^1, then pairs t, t^2).
-//   * Epilogue, per warp: dot = acc + q.z, the metric in registers
-//     (angular multiplies by 1 / (|q| + 1e-12) and 1 / (|x| + 1e-12)), the
+//     slice, k-step by k-step, columns 2t, 2t + 1, 2t + 8, 2t + 9; the
+//     sums in float64), then reduced across the quad (lanes t, t^1, then
+//     pairs t, t^2).
+//   * Epilogue, per warp: the two accumulators, q.z and the norms joined
+//     as above, the metric in registers (angular multiplies the dot
+//     product by 1 / (|q| + 1e-12) and 1 / (|x| + 1e-12)), the
 //     warp's 16 x 64 scores into its own staging boxes, then two 2-D tensor
 //     stores (16 x 32 boxes, L2 evict-first: the scores are written once)
 //     when n % 4 == 0, else 4-byte streaming stores. The stores drain while
@@ -112,9 +126,10 @@ constexpr int kBoxCols = 32;
 constexpr int kStagingFloats = 16 * kTileN;
 // shared memory: 1 KB to align what follows, the bf16 tiles, the staging
 // boxes, the ring, its mbarriers (64 bytes), the rows' norms of 4 tiles
+// (a float2 a row)
 constexpr size_t kSmemFixed =
     1024 + kBufs * kBfBytes + (size_t)kConsumerWarps * kStagingFloats * 4 +
-    (size_t)kStages * kSlotBytes + 64 + 4 * kTileN * 4;
+    (size_t)kStages * kSlotBytes + 64 + 4 * kTileN * 8;
 // + scale and zero, 1 KB a slice held
 constexpr size_t kSmemMax = kSmemFixed + (size_t)kSzSlices * 2 * kSlice * 4;
 constexpr float kEps = 1e-12f;                // angular epsilon
@@ -178,17 +193,27 @@ struct Args {
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-// (v0, v1) = p1 + p2 + p3, three packed bf16 pairs (v0 in the low half):
-// each rounding's remainder is exact in float32.
-__device__ __forceinline__ void split3(float v0, float v1, uint32_t& p1,
-                                       uint32_t& p2, uint32_t& p3) {
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(v0, v1);
-  const float2 f1 = __bfloat1622float2(h1);
-  const float r0 = __fsub_rn(v0, f1.x), r1 = __fsub_rn(v1, f1.y);
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(r0, r1);
-  const float2 f2 = __bfloat1622float2(h2);
-  const __nv_bfloat162 h3 =
-      __floats2bfloat162_rn(__fsub_rn(r0, f2.x), __fsub_rn(r1, f2.y));
+// (v0, v1), each |v| < 1, as three packed bf16 pairs of fixed-point pieces
+// (v0 in the low half): p1 on the grid 2^-8, p2 on 2^-16, p3 on 2^-24, each
+// an integer of at most 8 bits on its grid, so every value is exact in
+// bf16; every step is exact in float32 but the last rounding, |v - p1 - p2
+// - p3| <= 2^-25.
+__device__ __forceinline__ void split_fixed(float v0, float v1, uint32_t& p1,
+                                            uint32_t& p2, uint32_t& p3) {
+  float a[2] = {v0, v1}, b[3][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float a1 = __fmul_rn(rintf(__fmul_rn(a[e], 256.f)), 0x1p-8f);
+    const float r1 = __fsub_rn(a[e], a1);
+    const float a2 = __fmul_rn(rintf(__fmul_rn(r1, 65536.f)), 0x1p-16f);
+    const float r2 = __fsub_rn(r1, a2);
+    b[0][e] = a1;
+    b[1][e] = a2;
+    b[2][e] = __fmul_rn(rintf(__fmul_rn(r2, 0x1p24f)), 0x1p-24f);
+  }
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(b[0][0], b[0][1]);
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(b[1][0], b[1][1]);
+  const __nv_bfloat162 h3 = __floats2bfloat162_rn(b[2][0], b[2][1]);
   p1 = reinterpret_cast<const uint32_t&>(h1);
   p2 = reinterpret_cast<const uint32_t&>(h2);
   p3 = reinterpret_cast<const uint32_t&>(h3);
@@ -409,15 +434,16 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
 // its kRowChunks chunks of 16 columns from chunk v kRowChunks (v = tid %
 // kRowThreads). It writes them into the row of the bf16 tile (made visible
 // to the tensor cores' async proxy), and with `norms` adds those columns'
-// x_k^2 to `part`, in ascending k, from x_k = fl(fl(c_k scale_k) + zero_k).
-// On the tile's last slice (`xfin` not null) the two parts of a row meet in
-// a shuffle, p0 + p1, and the row's value for the epilogue
-// goes to xfin: |x|^2 for l2, 1 / (|x| + 1e-12) for angular.
+// x_k^2 to `part` in float64, in ascending k, from x_k = fl(fl(c_k
+// scale_k) + zero_k). On the tile's last slice (`xfin` not null) the two
+// parts of a row meet in a shuffle, p0 + p1, and the row's value for the
+// epilogue goes to xfin: |x|^2 as (high, low) float32 for l2, (1 / (|x| +
+// 1e-12), 0) for angular.
 __device__ __forceinline__ void convert_stage(const unsigned char* slot,
                                               const float* sc,
                                               unsigned char* bf, int tid,
                                               bool norms, int metric,
-                                              float& part, float* xfin) {
+                                              double& part, float2* xfin) {
   const int r = tid / kRowThreads, v = tid % kRowThreads;
   const float* zc = sc + kSlice;
 #pragma unroll
@@ -453,85 +479,151 @@ __device__ __forceinline__ void convert_stage(const unsigned char* slot,
         const float zv[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
-          const float x = __fadd_rn(__fmul_rn(cv[m], sv[m]), zv[m]);
-          part = __fmaf_rn(x, x, part);
+          const double x = __fadd_rn(__fmul_rn(cv[m], sv[m]), zv[m]);
+          part = __fma_rn(x, x, part);
         }
       }
     }
   }
   fence_async_shared();
   if (norms && xfin != nullptr) {
-    const float x = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 1));
-    if (v == 0)
-      xfin[r] = metric == 2 ? __frcp_rn(__fadd_rn(sqrtf(x), kEps)) : x;
-    part = 0.f;
+    const double x = __dadd_rn(part, __shfl_xor_sync(0xffffffffu, part, 1));
+    if (v == 0) {
+      const float hi = __double2float_rn(x);
+      xfin[r] = metric == 2
+                    ? make_float2(__frcp_rn(__fadd_rn(sqrtf(hi), kEps)), 0.f)
+                    : make_float2(hi, __double2float_rn(x - hi));
+    }
+    part = 0.0;
   }
 }
 
-// The warp's A fragments for the slice at column k0: three bf16 pieces of
-// u = q * scale for queries qw + g, qw + g + 8 (zero past B and d); with
-// `norms`, |q|^2 and q.z of those two queries summed over the same columns.
-__device__ __forceinline__ void build_a(const Args& a, int qw, int k0,
-                                        uint32_t (&A)[kSteps][3][4],
-                                        float (&qn)[2], float (&qz)[2],
-                                        bool norms, int g, int t) {
+// A thread's columns of the slice at column k0 (those of its A fragments,
+// zero past d) for query `row` (zero past B): fn(e, k, q, scale, zero).
+template <typename Fn>
+__device__ __forceinline__ void each_column(const Args& a, int row, int k0,
+                                            int t, int hh, Fn fn) {
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
+  for (int ks = 0; ks < kSteps; ++ks)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = qw + g + ((r & 1) << 3);
-      const int k = k0 + 16 * ks + 2 * t + ((r & 2) << 2);
-      float v[2] = {0.f, 0.f}, s[2] = {0.f, 0.f}, z[2] = {0.f, 0.f};
-      if (row < a.B) {
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (k + e < a.d) {
-            v[e] = __ldg(a.q + (size_t)row * a.d + k + e);
-            s[e] = __ldg(a.scale + k + e);
-            z[e] = __ldg(a.zero + k + e);
-          }
+      for (int e = 0; e < 2; ++e) {
+        const int k = k0 + 16 * ks + 2 * t + 8 * r + e;
+        float v = 0.f, sv = 0.f, zv = 0.f;
+        if (row < a.B && k < a.d) {
+          v = __ldg(a.q + (size_t)row * a.d + k);
+          sv = __ldg(a.scale + k);
+          zv = __ldg(a.zero + k);
         }
+        fn(ks, 2 * r + hh, e, v, sv, zv);
       }
-      split3(__fmul_rn(v[0], s[0]), __fmul_rn(v[1], s[1]), A[ks][0][r],
-             A[ks][1][r], A[ks][2][r]);
-      if (norms) {
+}
+
+// What the epilogue needs of the warp's two queries qw + g + 8 hh (hh = 0,
+// 1), found over all of d by the quad: 2^-E (inv, to scale u) and three
+// constants. l2: k0 = 2^(E+1), k1 = |q|^2 rounded to a multiple of
+// 2^(E-7), k2 = 2 q.z - the rest of |q|^2. ip and angular: k0 = 2^E, k1 =
+// q.z, k2 = 1 / (|q| + 1e-12) (angular).
+__device__ __forceinline__ void query_consts(const Args& a, int qw, int g,
+                                             int t, float (&inv)[2],
+                                             float (&k0)[2], float (&k1)[2],
+                                             float (&k2)[2]) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          qn[r & 1] = __fmaf_rn(v[e], v[e], qn[r & 1]);
-          qz[r & 1] = __fmaf_rn(v[e], z[e], qz[r & 1]);
-        }
-      }
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = qw + g + 8 * hh;
+    float mx = 0.f;
+    double qn = 0.0, qz = 0.0;
+    for (int sl = 0; sl < a.ns; ++sl)
+      each_column(a, row, sl * kSlice, t, hh,
+                  [&](int, int, int, float v, float sv, float zv) {
+                    mx = fmaxf(mx, fabsf(__fmul_rn(v, sv)));
+                    qn = __fma_rn((double)v, (double)v, qn);
+                    qz = __fma_rn((double)v, (double)zv, qz);
+                  });
+#pragma unroll
+    for (int m = 1; m <= 2; m <<= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, m));
+      qn = __dadd_rn(qn, __shfl_xor_sync(0xffffffffu, qn, m));
+      qz = __dadd_rn(qz, __shfl_xor_sync(0xffffffffu, qz, m));
+    }
+    int ex = 0;
+    frexpf(mx, &ex);                       // |u_k| < 2^ex
+    ex = ex < -125 ? -125 : (ex > 126 ? 126 : ex);
+    inv[hh] = ldexpf(1.f, -ex);
+    const float qn_hi = __double2float_rn(qn);
+    if (a.metric == 0) {
+      const double grid = ldexp(1.0, ex - 7), qn_r = rint(qn / grid) * grid;
+      k0[hh] = ldexpf(1.f, ex + 1);
+      k1[hh] = __double2float_rn(qn_r);
+      k2[hh] = __double2float_rn(2.0 * qz - (qn - (double)k1[hh]));
+    } else {
+      k0[hh] = ldexpf(1.f, ex);
+      k1[hh] = __double2float_rn(qz);
+      k2[hh] = __frcp_rn(__fadd_rn(sqrtf(qn_hi), kEps));
     }
   }
 }
 
+// The warp's A fragments for the slice at column k0: the three fixed-point
+// pieces of v = u 2^-E, u = q * scale, for queries qw + g, qw + g + 8 (zero
+// past B and d).
+__device__ __forceinline__ void build_a(const Args& a, int qw, int k0,
+                                        uint32_t (&A)[kSteps][3][4],
+                                        const float (&inv)[2], int g, int t) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float pair[2];
+    each_column(a, qw + g + 8 * hh, k0, t, hh,
+                [&](int ks, int r, int e, float v, float sv, float) {
+                  pair[e] = __fmul_rn(__fmul_rn(v, sv), inv[hh]);
+                  if (e == 1)
+                    split_fixed(pair[0], pair[1], A[ks][0][r], A[ks][1][r],
+                                A[ks][2][r]);
+                });
+  }
+}
+
 // The epilogue of a row tile (rows row0..) for a consumer warp (queries
-// qw..): dot = acc + q.z, the metric, the warp's staging boxes, the stores.
-// xf holds the rows' |x|^2 (l2) or 1 / (|x| + 1e-12) (angular).
+// qw..): the two accumulators (s1 of the v1 pieces, s23 of v2 and v3)
+// joined with the query's constants (`query_consts`) and the rows' xf into
+// the metric, the warp's staging boxes, the stores. l2: (T - |q|^2 on
+// T's grid, exact) - |x|^2, then the small terms 2^(E+1) s23 + 2 q.z and
+// the low parts, with T = 2^(E+1) s1 exact; ip: 2^E s1 + (2^E s23 + q.z);
+// angular: that times 1 / (|q| + 1e-12) and 1 / (|x| + 1e-12).
 __device__ __forceinline__ void epilogue(
-    const Args& a, const CUtensorMap* out_map, const float (&acc)[kNTiles][4],
-    float* stg, const float* xf, const float (&qn)[2], const float (&qz)[2],
-    const float (&iq)[2], int qw, int row0, int lane, uint64_t policy) {
+    const Args& a, const CUtensorMap* out_map, const float (&acc1)[kNTiles][4],
+    const float (&acc23)[kNTiles][4], float* stg, const float2* xf,
+    const float (&k0)[2], const float (&k1)[2], const float (&k2)[2], int qw,
+    int row0, int lane, uint64_t policy) {
   const int g = lane >> 2, t = lane & 3;
   const bool norms = a.metric != 1;
 #pragma unroll
   for (int nt = 0; nt < kNTiles; ++nt) {
     const int col = 8 * nt + 2 * t;
-    float2 x = make_float2(0.f, 0.f);
-    if (norms) x = *reinterpret_cast<const float2*>(xf + col);
-    const float xv[2] = {x.x, x.y};
+    float2 xv[2] = {make_float2(0.f, 0.f), make_float2(0.f, 0.f)};
+    if (norms) {
+      xv[0] = xf[col];
+      xv[1] = xf[col + 1];
+    }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float sc[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float dot = __fadd_rn(acc[nt][2 * hh + e], qz[hh]);
-        if (a.metric == 0)
-          sc[e] = __fsub_rn(__fsub_rn(__fmul_rn(2.f, dot), qn[hh]), xv[e]);
-        else if (a.metric == 1)
-          sc[e] = dot;
-        else
-          sc[e] = __fmul_rn(__fmul_rn(dot, iq[hh]), xv[e]);
+        const float s1 = acc1[nt][2 * hh + e], s23 = acc23[nt][2 * hh + e];
+        const float big = __fmul_rn(s1, k0[hh]);   // exact
+        if (a.metric == 0) {
+          const float h = __fsub_rn(__fsub_rn(big, k1[hh]), xv[e].x);
+          const float small =
+              __fsub_rn(__fmaf_rn(s23, k0[hh], k2[hh]), xv[e].y);
+          sc[e] = __fadd_rn(h, small);
+        } else {
+          const float dot = __fadd_rn(big, __fmaf_rn(s23, k0[hh], k1[hh]));
+          sc[e] = a.metric == 1
+                      ? dot
+                      : __fmul_rn(__fmul_rn(dot, k2[hh]), xv[e].x);
+        }
       }
       *reinterpret_cast<float2*>(stg + stg_at(g + 8 * hh, col)) =
           make_float2(sc[0], sc[1]);
@@ -575,8 +667,8 @@ quant_distance_kernel(const Args a,
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       staging + kConsumerWarps * kStagingFloats);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + kStages * kSlotBytes);
-  float* xfin = reinterpret_cast<float*>(ring + kStages * kSlotBytes + 64);
-  float* sz = xfin + 4 * kTileN;        // xfin: [4][kTileN], by tile % 4
+  float2* xfin = reinterpret_cast<float2*>(ring + kStages * kSlotBytes + 64);
+  float* sz = reinterpret_cast<float*>(xfin + 4 * kTileN);   // xfin: [4][kTileN]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bx = blockIdx.x, gx = gridDim.x, ns = a.ns;
@@ -604,7 +696,7 @@ quant_distance_kernel(const Args a,
     named_sync(kBarProducer, kProducerThreads);
     if (ptid == 0 && tma)
       for (int s = 0; s < kStages && s < S; ++s) issue(s);
-    float part = 0.f;
+    double part = 0.0;
     for (int s = 0; s < S; ++s) {
       const int sl = s % ns;
       unsigned char* slot = ring + (s % kStages) * kSlotBytes;
@@ -643,29 +735,20 @@ quant_distance_kernel(const Args a,
   const int g = lane >> 2, t = lane & 3;
   const int qw = blockIdx.y * kTileQ + 16 * warp;
   uint32_t A[kSteps][3][4];
-  float qn[2] = {0.f, 0.f}, qz[2] = {0.f, 0.f};
-  for (int sl = 0; sl < ns; ++sl)
-    build_a(a, qw, sl * kSlice, A, qn, qz, true, g, t);
-  float iq[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qn[i] += __shfl_xor_sync(0xffffffffu, qn[i], 1);
-    qn[i] += __shfl_xor_sync(0xffffffffu, qn[i], 2);
-    qz[i] += __shfl_xor_sync(0xffffffffu, qz[i], 1);
-    qz[i] += __shfl_xor_sync(0xffffffffu, qz[i], 2);
-    iq[i] = __frcp_rn(__fadd_rn(sqrtf(qn[i]), kEps));
-  }
+  float inv[2], k0[2], k1[2], k2[2];
+  query_consts(a, qw, g, t, inv, k0, k1, k2);
+  if (ns == 1) build_a(a, qw, 0, A, inv, g, t);
   const uint64_t policy = evict_first_policy();
 
   // The two consumer warpgroups take turns at the tensor cores (ping-pong):
   // one issues a stage's products while the other runs its epilogue.
   const int wg = warp >> 2;
   if (wg == 1) named_arrive(kBarTurn, kConsumers);   // the first turn
-  float acc[kNTiles][4] = {};
+  float acc1[kNTiles][4] = {}, acc23[kNTiles][4] = {};
   float* stg = staging + warp * kStagingFloats;
   for (int s = 0; s < S; ++s) {
     const int it = s / ns, sl = s % ns;
-    if (ns > 1) build_a(a, qw, sl * kSlice, A, qn, qz, false, g, t);
+    if (ns > 1) build_a(a, qw, sl * kSlice, A, inv, g, t);
     named_sync(kBarFull + 2 * (s % kBufs) + wg, kPair);
     named_sync(kBarTurn + wg, kConsumers);
     PROF(0);
@@ -676,20 +759,21 @@ quant_distance_kernel(const Args a,
     for (int ks = 0; ks < kSteps; ++ks) {
       const uint64_t desc =
           kmajor_sw128_desc(bfb + (ks >> 2) * kHalfBytes + (ks & 3) * 32);
-      wgmma_64(acc, A[ks][2], desc, ks > 0);
-      wgmma_64(acc, A[ks][1], desc, 1);
-      wgmma_64(acc, A[ks][0], desc, 1);
+      wgmma_64(acc23, A[ks][2], desc, ks > 0);
+      wgmma_64(acc23, A[ks][1], desc, 1);
+      wgmma_64(acc1, A[ks][0], desc, ks > 0);
     }
     wgmma_commit();
     named_arrive(kBarTurn + 1 - wg, kConsumers);
-    wgmma_wait(acc);
+    wgmma_wait(acc1);
+    wgmma_wait(acc23);
     // the tile is free (its row norms stay until tile it + 4 is filled)
     named_arrive(kBarEmpty + 2 * (s % kBufs) + wg, kPair);
     PROF(1);
 
     // Each slice's sums start from zero, and the slices of a tile meet in
-    // float32 in order through the warp's staging boxes: a long row is not
-    // summed in one accumulator (the tensor cores' sums round toward zero).
+    // float32 in order through the warp's staging boxes (s1 + s23 of each
+    // slice, then the last slice's s1 joins the sum and its s23 stays).
     if (sl == 0) {   // the previous tile's stores have read the boxes
       if (lane == 0) bulk_wait_read();
       __syncwarp();
@@ -702,18 +786,20 @@ quant_distance_kernel(const Args a,
           float2* p = reinterpret_cast<float2*>(
               stg + stg_at(g + 8 * hh, 8 * nt + 2 * t));
           const float2 v = sl == 0 ? make_float2(0.f, 0.f) : *p;
+          float* a1 = &acc1[nt][2 * hh];
+          const float* a23 = &acc23[nt][2 * hh];
           if (sl < ns - 1) {
-            *p = make_float2(__fadd_rn(v.x, acc[nt][2 * hh]),
-                             __fadd_rn(v.y, acc[nt][2 * hh + 1]));
+            *p = make_float2(__fadd_rn(v.x, __fadd_rn(a1[0], a23[0])),
+                             __fadd_rn(v.y, __fadd_rn(a1[1], a23[1])));
           } else {
-            acc[nt][2 * hh] = __fadd_rn(v.x, acc[nt][2 * hh]);
-            acc[nt][2 * hh + 1] = __fadd_rn(v.y, acc[nt][2 * hh + 1]);
+            a1[0] = __fadd_rn(v.x, a1[0]);
+            a1[1] = __fadd_rn(v.y, a1[1]);
           }
         }
     }
     if (sl == ns - 1)
-      epilogue(a, &out_map, acc, stg, xfin + (it & 3) * kTileN, qn, qz, iq,
-               qw, (bx + it * gx) * kTileN, lane, policy);
+      epilogue(a, &out_map, acc1, acc23, stg, xfin + (it & 3) * kTileN, k0,
+               k1, k2, qw, (bx + it * gx) * kTileN, lane, policy);
     PROF(2);
   }
   if (wg == 0) named_sync(kBarTurn, kConsumers);   // the last turn

@@ -81,13 +81,14 @@ def layout_bytes(d: int, efp: int, m0: int, words: int, vis_shared: bool,
     """Shared-memory bytes of one block, region by region as the kernel's
     ``Layout`` lays them out (each region 16-byte aligned): the query,
     the int8 grid, the beam (8-byte entries), the new candidates (nodes,
-    dot products, norms), the prefetched adjacency row, 32 sorted
+    and their float64 dot products and norms), the prefetched adjacency
+    row, 32 sorted
     survivors, control words, the visited bitmask, and the staging
     buffers."""
     elem = 1 if quantized else 4
     stage = elem * stage_rows * slice_cols
     sizes = (4 * d, 4 * d if quantized else 0, 4 * d if quantized else 0,
-             8 * efp, 4 * m0, 4 * m0, 4 * m0, 4 * m0, 8 * 32, 16,
+             8 * efp, 4 * m0, 8 * m0, 8 * m0, 4 * m0, 8 * 32, 16,
              4 * words if vis_shared else 0, stage,
              stage if stage_buffers == 2 else 0)
     off = 0

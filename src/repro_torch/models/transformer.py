@@ -8,12 +8,14 @@ parameters are stacked on a leading layer axis, and a segment runs as a
 Python loop over its layers (the reference's ``lax.scan``).
 
 Ported: the ``attention`` group with full, sliding-window and
-local-global attention, dense MLPs, the decode caches (a sliding layer's
-in a ring of at most ``window`` slots, cache group ``attention@swa``)
-and prefill; the ``mamba2`` group (Mamba2 blocks, whose prefill runs the
-SSD kernel) with its recurrent decode state. Not ported yet (ROADMAP.md,
-section 1): the ``shared_attention`` group (zamba2) and MoE MLPs; each
-raises ``NotImplementedError``. Remat is per-layer (or per-segment)
+local-global attention, dense and MoE MLPs (``models/moe.py``; a layer's
+load-balancing loss is summed into ``forward``'s aux), the decode caches
+(a sliding layer's in a ring of at most ``window`` slots, cache group
+``attention@swa``) and prefill; the ``mamba2`` group (Mamba2 blocks,
+whose prefill runs the SSD kernel) with its recurrent decode state. Not
+ported yet (ROADMAP.md, section 1): the ``shared_attention`` group
+(zamba2) and the frontends; each raises ``NotImplementedError``. Remat
+is per-layer (or per-segment)
 ``torch.utils.checkpoint``; mesh sharding of the activations is not
 ported (the train step runs at world size 1).
 """
@@ -33,13 +35,13 @@ from repro_torch.models.attention import (AttnSpec, attention_block,
                                           decode_attention_block,
                                           init_attention_params,
                                           layer_attn_spec, ring_pack)
+from repro_torch.models.moe import init_moe_params, moe_block
 from repro_torch.models.ssm import init_mamba2_params, init_ssm_state, \
     mamba2_block
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SHARED_TODO = ("weight-tied shared attention (zamba2) is not ported yet "
                "(ROADMAP.md section 1: shared attention)")
-MOE_TODO = "MoE layers are not ported yet (ROADMAP.md section 1: MoE)"
 FRONTEND_TODO = ("vision and audio frontends are not ported yet (ROADMAP.md "
                  "section 1: they come with their families)")
 
@@ -97,8 +99,6 @@ def build_plan(cfg: ArchConfig) -> Tuple[List[Segment], Dict[str, int]]:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(MOE_TODO)
     if cfg.frontend:
         raise NotImplementedError(FRONTEND_TODO)
     for seg in build_plan(cfg)[0]:
@@ -118,7 +118,9 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     a generator seeded 0 on ``device`` when none is given), norm scales
     zero, and the Mamba2 constants of the reference. Keys follow the
     reference's tree: the layers of each group in the plan are stacked on
-    a leading axis under ``blocks/attention`` and ``blocks/mamba2``."""
+    a leading axis under ``blocks/attention`` and ``blocks/mamba2``; an
+    MoE config's attention layers hold ``router`` (float32), ``e_gate``,
+    ``e_in`` and ``e_out`` in place of the dense MLP's weights."""
     dev = resolve_device(device)
     _check_ported(cfg)
     if generator is None and dev.type != "meta":
@@ -145,9 +147,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         blocks = {"norm_attn": zeros(n, d), "norm_mlp": zeros(n, d)}
         blocks.update(init_attention_params(cfg, dtype, generator, dev,
                                             layers=n))
-        blocks["w_gate"] = dense((n, d, f), d)
-        blocks["w_in"] = dense((n, d, f), d)
-        blocks["w_out"] = dense((n, f, d), f)
+        if cfg.moe is not None:
+            blocks.update(init_moe_params(cfg, dtype, generator, dev,
+                                          layers=n))
+        else:
+            blocks["w_gate"] = dense((n, d, f), d)
+            blocks["w_in"] = dense((n, d, f), d)
+            blocks["w_out"] = dense((n, f, d), f)
         params["blocks"]["attention"] = blocks
     if n_mamba:
         blocks = {"norm_in": zeros(n_mamba, d)}
@@ -223,7 +229,8 @@ def _attn_layer_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
                     kv: Optional[dict] = None,
                     pos: Optional[torch.Tensor] = None,
                     build_cache: bool = False):
-    """One attention + MLP layer. Returns (x, new_kv).
+    """One attention + MLP layer. Returns (x, aux, new_kv): aux is the MoE
+    layer's load-balancing loss (None for a dense MLP).
 
     Train/prefill: new_kv is the full-sequence {k, v} when build_cache,
     else None. Decode: new_kv is ``kv``, written in place at ``pos``.
@@ -238,7 +245,11 @@ def _attn_layer_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
         new_kv = {"k": k_new, "v": v_new}
     x = x + attn
     h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-    return x + L.swiglu(h, p["w_gate"], p["w_in"], p["w_out"]), new_kv
+    if cfg.moe is not None:
+        mlp, aux = moe_block(p, cfg, h)
+    else:
+        mlp, aux = L.swiglu(h, p["w_gate"], p["w_in"], p["w_out"]), None
+    return x + mlp, aux, new_kv
 
 
 def _mamba_layer_fwd(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -260,23 +271,30 @@ def _requires_grad(tree: dict) -> bool:
 
 def _train_segment(blocks: dict, seg: Segment, cfg: ArchConfig,
                    x: torch.Tensor, positions: torch.Tensor, remat: bool,
-                   remat_segments: bool) -> torch.Tensor:
+                   remat_segments: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """A segment's layers on a training forward: each layer under
     ``checkpoint`` with ``remat`` (its activations recomputed in the
     backward), and the whole segment under one more with
-    ``remat_segments`` (one saved residual per segment)."""
+    ``remat_segments`` (one saved residual per segment). Returns (x, the
+    segment's MoE aux summed over its layers, or None)."""
+    moe = seg.group == "attention" and cfg.moe is not None
 
-    def layer(j: int, xx: torch.Tensor) -> torch.Tensor:
+    def layer(j: int, xx: torch.Tensor):
         p = {key: w[seg.start + j] for key, w in blocks.items()}
         if seg.group == "mamba2":
             return _mamba_layer_fwd(p, cfg, xx)[0]
-        return _attn_layer_fwd(p, cfg, xx, positions, seg.spec)[0]
+        xx, aux, _ = _attn_layer_fwd(p, cfg, xx, positions, seg.spec)
+        return (xx, aux) if moe else xx
 
-    def run(xx: torch.Tensor) -> torch.Tensor:
+    def run(xx: torch.Tensor):
+        auxs = []
         for j in range(seg.length):
-            xx = checkpoint(layer, j, xx, use_reentrant=False) if remat \
+            out = checkpoint(layer, j, xx, use_reentrant=False) if remat \
                 else layer(j, xx)
-        return xx
+            xx = out[0] if moe else out
+            if moe:
+                auxs.append(out[1])
+        return xx, torch.stack(auxs).sum() if moe else None
 
     if remat_segments:
         return checkpoint(run, x, use_reentrant=False)
@@ -303,7 +321,9 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     Decode: inputs [B, 1], cache from ``make_cache``, decode_pos [B] ->
       (logits [B, 1, V], aux, cache), the cache updated in place.
     skip_head=True returns the final-norm hidden states [B, S, D] in
-    place of the logits. aux is the MoE load-balancing loss, zero here.
+    place of the logits. aux is the MoE load-balancing loss summed over
+    the layers (each segment's layers summed, then the segments in order,
+    as the reference sums its scans), float32 zero without MoE layers.
     A training forward (no cache, grad mode on and a parameter that
     requires grad) recomputes each layer's activations in the backward
     with ``remat`` and each segment's with ``remat_segments``, as the
@@ -318,12 +338,16 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
         and _requires_grad(params)
 
     new_states: Dict[str, list] = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg in build_plan(cfg)[0]:
         blocks = params["blocks"][seg.group]
         if train:
-            x = _train_segment(blocks, seg, cfg, x, positions, remat,
-                               remat_segments)
+            x, aux = _train_segment(blocks, seg, cfg, x, positions, remat,
+                                    remat_segments)
+            if aux is not None:
+                aux_total = aux_total + aux
             continue
+        auxs = []
         for j in range(seg.length):
             p = {key: w[seg.start + j] for key, w in blocks.items()}
             state = None
@@ -335,14 +359,18 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
                 x, new_state = _mamba_layer_fwd(p, cfg, x, state,
                                                 decode=decode)
             else:
-                x, new_state = _attn_layer_fwd(
+                x, aux, new_state = _attn_layer_fwd(
                     p, cfg, x, positions, seg.spec, kv=state,
                     pos=decode_pos, build_cache=build_cache)
+                if aux is not None:
+                    auxs.append(aux)
             if build_cache:
                 if seg.cache_group.endswith("@swa"):
                     new_state = {name: ring_pack(a, cfg.sliding_window)
                                  for name, a in new_state.items()}
                 new_states.setdefault(seg.cache_group, []).append(new_state)
+        if auxs:
+            aux_total = aux_total + torch.stack(auxs).sum()
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if skip_head:
@@ -351,12 +379,11 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
         logits = x @ params["embedding"].T
     else:
         logits = x @ params["lm_head"]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if decode:
-        return logits, aux, cache
+        return logits, aux_total, cache
     if build_cache:
         prefill_cache = {g: {name: torch.stack([st[name] for st in sts])
                              for name in sts[0]}
                          for g, sts in new_states.items()}
-        return logits, aux, prefill_cache
-    return logits, aux, None
+        return logits, aux_total, prefill_cache
+    return logits, aux_total, None

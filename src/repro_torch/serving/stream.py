@@ -56,6 +56,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import weakref
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -266,11 +267,15 @@ class StreamEngine:
         self._h_ret_lat = m.histogram(
             "pyramid_stream_retrieval_latency_seconds",
             "lookup submit-to-resolve latency")
+        # the gauges see the engine through a weak reference: the registry
+        # (the caller's, or shared with the datastore's serving engine)
+        # must not keep the engine, and with it the model, alive
+        me = weakref.ref(self)
         m.gauge("pyramid_stream_queued_sessions", "admission queue depth",
-                fn=lambda: len(self.queue))
+                fn=lambda: len(me().queue) if me() else 0)
         m.gauge("pyramid_stream_active_sessions", "occupied decode slots",
-                fn=lambda: sum(s is not None for grp in self.groups
-                               for s in grp.sessions))
+                fn=lambda: sum(s is not None for grp in me().groups
+                               for s in grp.sessions) if me() else 0)
         self._ret_wait = collections.deque(maxlen=stats_window)
         self._ret_lat = collections.deque(maxlen=stats_window)
 
@@ -282,10 +287,15 @@ class StreamEngine:
 
     def close(self) -> None:
         """Tear down the engine; shuts down the datastore client's
-        serving engine iff this engine opened it."""
+        serving engine iff this engine opened it. A closed engine holds
+        neither the model's parameters nor its slot caches; ``stats()``
+        still reads."""
         if self._closed:
             return
         self._closed = True
+        self.params = self._head = None
+        for g in self.groups:
+            g.cache = None
         if self._owns_client and self._client is not None:
             self._client.shutdown()
 

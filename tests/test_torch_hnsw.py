@@ -67,6 +67,32 @@ def test_builder_gives_identical_graph(graphs, metric):
         np.testing.assert_array_equal(a, b)
 
 
+def _hard_data(kind: str) -> np.ndarray:
+    """Data whose float32 similarities the selection's float64 bounds
+    cannot all decide: small integers (exact ties and duplicate rows), or
+    a tight cloud far from the origin (bounds wider than the gaps)."""
+    rng = np.random.default_rng(11)
+    if kind == "ties":
+        return rng.integers(-2, 3, size=(200, 8)).astype(np.float32)
+    return (1000.0 + 0.01 * rng.normal(size=(200, 24))).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ("ties", "far"))
+@pytest.mark.parametrize("metric", ("l2", "ip"))
+def test_builder_gives_identical_graph_where_bounds_cannot_decide(kind,
+                                                                  metric):
+    """The neighbour selection decides from float64 bounds where it can
+    and asks the float32 similarities elsewhere: the reference's graph,
+    also where many comparisons fall within the bounds."""
+    x = _hard_data(kind)
+    ref = RH.build_hnsw(x, metric=metric, **BUILD)
+    port = TH.build_hnsw(x, metric=metric, **BUILD)
+    assert port.entry == ref.entry
+    np.testing.assert_array_equal(port.levels, ref.levels)
+    for a, b in zip(ref.neighbors, port.neighbors, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
 def _ref_arrays(g, quantized):
     arrs = g.device_arrays()
     if not quantized:

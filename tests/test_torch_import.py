@@ -61,6 +61,8 @@ def test_every_module_imports_without_jax_or_reference():
     assert {"repro_torch.configs.gemma3_12b",
             "repro_torch.configs.h2o_danube_1_8b",
             "repro_torch.configs.chatglm3_6b"} <= set(MODULES)
+    assert {"repro_torch.models.moe", "repro_torch.configs.phi35_moe_42b",
+            "repro_torch.configs.grok_1_314b"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"

@@ -73,8 +73,9 @@ def _close(ours, ref, **tol):
 
 
 def test_config_and_registry_match_reference():
-    assert list_archs() == ["chatglm3-6b", "gemma3-12b", "h2o-danube-1.8b",
-                            "mamba2-780m", "qwen3-1.7b"]
+    assert list_archs() == ["chatglm3-6b", "gemma3-12b", "grok-1-314b",
+                            "h2o-danube-1.8b", "mamba2-780m",
+                            "phi3.5-moe-42b-a6.6b", "qwen3-1.7b"]
     for arch in list_archs():
         for reduce in (False, True):
             ref, ours = ref_get_arch(arch), get_arch(arch)
@@ -105,16 +106,26 @@ def test_init_params_match_reference_tree(model):
 
 
 def test_unported_families_raise():
+    """Shared attention and frontends still raise; an MoE config (ported)
+    builds its parameters, with the MoE keys in place of the dense MLP's,
+    and its cache."""
     base = get_arch("qwen3-1.7b").reduced()
     for cfg in (dataclasses.replace(base, block_pattern=(
                     BlockKind.SHARED_ATTENTION,)),
-                dataclasses.replace(base, moe=MoEConfig(4, 2)),
                 dataclasses.replace(base, frontend="vision",
                                     frontend_dim=16)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TT.init_params(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TT.make_cache(cfg, 1, 8, device="cpu")
+    moe = dataclasses.replace(base, moe=MoEConfig(4, 2))
+    blocks = TT.init_params(moe, device="cpu")["blocks"]["attention"]
+    assert {"router", "e_gate", "e_in", "e_out"} <= set(blocks)
+    assert not {"w_gate", "w_in", "w_out"} & set(blocks)
+    assert blocks["router"].shape == (2, moe.d_model, 4)
+    cache = TT.make_cache(moe, 1, 8, device="cpu")
+    assert cache["attention"]["k"].shape == (
+        2, 1, 8, moe.num_kv_heads, moe.resolved_head_dim)
 
 
 def test_forward_matches_reference(model):

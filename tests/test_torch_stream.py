@@ -15,6 +15,8 @@ atol 1e-4 (float32 sums in another order). The tests of
 the ``faults`` marker.
 """
 import dataclasses
+import gc
+import weakref
 
 import jax
 import numpy as np
@@ -341,6 +343,48 @@ def test_stream_overlap_equals_serialized(qwen3):
             assert len(by_id) == len(prompts)
         out[overlap] = {i: c.tokens for i, c in by_id.items()}
     assert out[True] == out[False]
+
+
+def _cloned(tree):
+    return {k: _cloned(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _a_tensor(tree):
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree))
+    return tree
+
+
+@pytest.mark.parametrize("closed", [True, False], ids=["closed", "dropped"])
+def test_engine_keeps_no_model_alive(qwen3, closed):
+    """No reference cycle holds the model: with the cycle collector off,
+    a closed engine (here with its own datastore client) releases its
+    parameters and slot caches at once while its ``stats()`` still read,
+    and an engine dropped without ``close()`` is freed with them, though
+    the registry it reported to outlives it."""
+    cfg = qwen3["cfg"]
+    params = _cloned(qwen3["params"])
+    leaf = weakref.ref(params["embedding"])
+    registry = MetricsRegistry()
+    kw = dict(datastore=qwen3["ds"], knn_k=4, lam=0.3) if closed else {}
+    gc.disable()
+    try:
+        eng = StreamEngine(params, cfg, num_slots=4, max_seq=32,
+                           registry=registry, **kw, **CPU)
+        cache = weakref.ref(_a_tensor(eng.groups[0].cache))
+        del params
+        assert len(_run(eng, _prompts(cfg, 3, seed=5), n_new=3)) == 3
+        if closed:
+            eng.close()
+            assert eng.stats()["sessions"]["completed"] == 3
+        else:
+            gone = weakref.ref(eng)
+            del eng
+            assert gone() is None
+        assert leaf() is None and cache() is None
+    finally:
+        gc.enable()
 
 
 def test_stream_retrieval_steers_decode(qwen3):
