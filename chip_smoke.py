@@ -151,6 +151,33 @@ Phases, each raising on failure (the script then exits non-zero):
      = 4,096, and the int8 scan's l2 error against float64 at phase 4's
      data, split into its parts: on each query's float64 top 10 rows at
      or below the plain version's and under half a named near tie's gap.
+  14. the hybrid stack and the frontends (under 120 s): 14a float32
+     checks at full width of zamba2-7b at depth 12 (ten Mamba2 layers and
+     two invocations of its one weight-tied attention block), held layer
+     by layer along the plan (each Mamba2 layer and each shared
+     invocation fed the full forward's own input: its prefill against
+     the full sequence, its decode, through flash-decode at hd = 112 for
+     the shared block, against the full forward), and of internvl2-2b
+     and musicgen-medium at depth 2 on [B, S + T, F] embeddings (the
+     prompt prefilled, the next T embeddings decoded one at a time,
+     logits within 1e-3 of the full forward, argmax equal); 14b
+     zamba2-7b's kNN-LM serving at full width in bf16, all 81 layers (a
+     1,024-key datastore at d = 3,584, 16 requests of 128 to 1,024
+     tokens in 8 slots of a 2,048-row cache, 16 new tokens each;
+     flash-decode 13 times a step, the SSD 68 times a full forward and
+     never in a decode step); 14c zamba2's train step at full width,
+     depth 12, bf16, 4 x 256 (every leaf's gradient non-zero at step 1,
+     the shared block's included), and the reduced config at depth 12 on
+     the card against the CPU (each layer's gradients within 1e-4; end
+     to end, where ten random Mamba2 layers amplify float32 rounding,
+     within 4x the CPU float32's distance from a float64 step); 14d internvl2-2b (24 layers) and
+     musicgen-medium (48 layers) at full depth in bf16: a prefill of 8 x
+     256 embeddings, then 16 decode steps on [8, 1, F] stand-ins through
+     flash-decode. Flash-decode's plain version never runs on the card
+     there. Phase 2 holds flash-decode at zamba2's shape (32 query heads
+     over 32, hd = 112, bf16 and float32) and musicgen's (24 over 24, hd
+     = 64), and the SSD scan and its backward at zamba2's width (H 112, N
+     64).
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -680,8 +707,8 @@ def decode_inputs(dev, *, b: int = 8, s: int = 1024, h: int = 16,
                   pos: str = "random", seed: int = 3):
     """q [B, H, hd] f32, a cache [B, S, KV, hd] in ``dtype`` and ``pos``:
     "random" (0..S-1), "full" (S - 1), "served" (:func:`served_positions`
-    of qwen3-1.7b), "served-gemma3" or "served-phi3.5" (those of
-    gemma3-12b or phi3.5-moe-42b-a6.6b)."""
+    of qwen3-1.7b), "served-gemma3", "served-phi3.5" or "served-zamba2"
+    (those of gemma3-12b, phi3.5-moe-42b-a6.6b or zamba2-7b)."""
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -691,8 +718,8 @@ def decode_inputs(dev, *, b: int = 8, s: int = 1024, h: int = 16,
     if pos == "full":
         p = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
     elif pos.startswith("served"):
-        arch = {"served-gemma3": "gemma3-12b",
-                "served-phi3.5": MOE_ARCH}.get(pos, "qwen3-1.7b")
+        arch = {"served-gemma3": "gemma3-12b", "served-phi3.5": MOE_ARCH,
+                "served-zamba2": HYBRID_ARCH}.get(pos, "qwen3-1.7b")
         p = torch.as_tensor(served_positions(b, seed, arch),
                             dtype=torch.int32, device=dev)
     else:
@@ -777,7 +804,8 @@ def check_decode(dev, *, b: int = 8, s: int = 1024, h: int = 16,
     torch.cuda.empty_cache()
     shown = {"full": "S-1", "served": "served",
              "served-gemma3": "gemma3 served",
-             "served-phi3.5": "phi3.5 served"}.get(pos_mode, pos_mode)
+             "served-phi3.5": "phi3.5 served",
+             "served-zamba2": "zamba2 served"}.get(pos_mode, pos_mode)
     if ring:
         shown = "past the ring (every slot)"
     return {"shape": f"B={b} S={s} H={h} KV={kvh} hd={hd} {dtype} "
@@ -1066,7 +1094,10 @@ def kernels_vs_plain(dev, n: int) -> dict:
     # head), a full-size cache with a window, and float32 at hd = 80 and
     # 240; then phase 13's: phi3.5-moe's (32 query heads over 8, S 2,048
     # at 13b's served positions) and grok-1's (48 over 8: 6 query heads a
-    # kv head, one block of 8 with two idle) in bf16 and float32
+    # kv head, one block of 8 with two idle) in bf16 and float32; then
+    # phase 14's: zamba2-7b's shared block (32 query heads over 32, hd =
+    # 112, S 2,048 at 14b's served positions) in bf16 and float32, and
+    # musicgen-medium's (24 over 24, hd = 64)
     for kw in (dict(), dict(dtype="float32"),
                dict(s=32_768, pos="full"), dict(pos="served"),
                dict(hd=240, ring=True),
@@ -1077,7 +1108,11 @@ def kernels_vs_plain(dev, n: int) -> dict:
                dict(s=4096, h=32, hd=80, ring=True, dtype="float32"),
                dict(hd=240, ring=True, dtype="float32"),
                dict(s=2048, h=32, pos="served-phi3.5"),
-               dict(h=48), dict(h=48, dtype="float32")):
+               dict(h=48), dict(h=48, dtype="float32"),
+               dict(s=2048, h=32, kvh=32, hd=112, pos="served-zamba2"),
+               dict(s=2048, h=32, kvh=32, hd=112, pos="served-zamba2",
+                    dtype="float32"),
+               dict(h=24, kvh=24, hd=64)):
         r = check_decode(dev, **kw)
         res["decode_attention"].append(r)
         log(f"decode_attention {r['shape']}: max err {r['max_abs_err']:.3g}"
@@ -1086,9 +1121,10 @@ def kernels_vs_plain(dev, n: int) -> dict:
             f" {r['library_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
     # mamba2-780m's SSD: a corpus row's prefill (three chunks, the last
-    # ragged; bf16 as served, f32 as checked), then a batch of long prompts
+    # ragged; bf16 as served, f32 as checked), then a batch of long
+    # prompts; then zamba2-7b's width (H 112, N 64) at a corpus row
     for kw in (dict(), dict(dtype="float32"),
-               dict(b=4, s=4096, reps=10)):
+               dict(b=4, s=4096, reps=10), dict(h=112, n=64)):
         r = check_ssd(dev, **kw)
         res["ssd"].append(r)
         log(f"ssd {r['shape']}: max err {r['max_abs_err']:.3g} (|y| <= "
@@ -1100,9 +1136,10 @@ def kernels_vs_plain(dev, n: int) -> dict:
             f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']})")
     # its backward: phase 11a's layer shape (the train step's call; bf16
-    # as trained, f32 as phase 11c checks), then the forward's two rows
+    # as trained, f32 as phase 11c checks), then the forward's two rows,
+    # then zamba2-7b's layer at phase 14c's batch (4 x 256)
     for kw in (dict(), dict(dtype="float32"), dict(b=1, s=513),
-               dict(b=4, s=4096, reps=5)):
+               dict(b=4, s=4096, reps=5), dict(b=4, s=256, h=112, n=64)):
         r = check_ssd_backward(dev, **kw)
         res["ssd_backward"].append(r)
         log(f"ssd_backward {r['shape']}: error shares "
@@ -1542,21 +1579,25 @@ PYRAMID_KERNELS = ("beam_search", "merge_topk", "topk_distance")
 #     a corpus prefix of at most prefix_max tokens), max_new new tokens
 #     each, in `slots` slots of a max_seq-row cache;
 #   kernels: the kernels the phase must launch, and those it must not;
-#   step_kernel: launched once per layer in every decode step;
-#   forward_kernel: launched once per layer in every full forward and in
-#     no decode step;
+#   step_kernel: launched once per layer of its group in every decode
+#     step (flash-decode in each attention layer and shared invocation);
+#   forward_kernel: launched once per layer of its group in every full
+#     forward and in no decode step (the SSD in each Mamba2 layer);
 #   gate: what the float32 check holds to LM_LOGITS_ATOL, "logits" (the
 #     end-to-end logits and greedy tokens) or "layers" (every layer's
-#     outputs, each layer fed the full forward's own inputs; the
-#     end-to-end numbers are recorded). The random 48-layer Mamba2 stack
+#     outputs along the plan, each layer fed the full forward's own
+#     inputs; the end-to-end numbers are recorded). The random 48-layer
+#     Mamba2 stack
 #     amplifies float32 rounding from layer to layer: the same SSD kernel
 #     over the prompt and over the whole sequence, two orders of the same
 #     sums, parts in the logits at one position by far more than
 #     LM_LOGITS_ATOL (the check prints this floor as the prefill error).
 #     Layer by layer nothing is amplified, and the prefill state's
 #     hand-off to the recurrent decode is held at every layer.
-# phase 13's served MoE config
+# phase 13's served MoE config, phase 14's hybrid and frontend configs
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+HYBRID_ARCH = "zamba2-7b"
+FRONTEND_ARCHS = ("internvl2-2b", "musicgen-medium")
 LM_SPECS = {
     # a corpus of 8 rows (4,096 keys), a cut of scale that keeps time for
     # phase 12
@@ -1616,6 +1657,29 @@ LM_SPECS = {
     "chatglm3-6b": dict(
         check=dict(batch=1, prompt_len=256, steps=32, num_layers=2),
         forward_kernel=None, gate="logits"),
+    # phase 14a: zamba2-7b in float32 at depth 12 (ten Mamba2 layers, two
+    # shared invocations, 4.9 GB; the only cut: 81 float32 layers are 23
+    # GB and the random Mamba2 stack is held layer by layer anyway) over
+    # prompts of two chunks and a part; internvl2-2b and musicgen-medium
+    # at depth 2 on [B, S + T, F] embeddings
+    HYBRID_ARCH: dict(
+        check=dict(batch=4, prompt_len=300, steps=16, num_layers=12),
+        # phase 14b: all 81 layers in bf16 (11.5 GB), over one corpus row
+        # of 1,025 tokens (1,024 keys at d = 3,584) and prompts of 128 to
+        # 1,024 tokens in a 2,048-row cache; 16 new tokens each (a cut from
+        # the other cells' 32 to 64, for the script's time)
+        cell=dict(corpus_seqs=1, corpus_len=1025, ds_batch=1, requests=16,
+                  prompt_lo=128, prompt_hi=1024, prefix_max=1024, slots=8,
+                  max_seq=2048, max_new=16, knn_k=8, seed=14,
+                  prefill_len=None),
+        kernels=PYRAMID_KERNELS + ("decode_attention", "ssd"), absent=(),
+        step_kernel="decode_attention", forward_kernel="ssd", gate="layers"),
+    "internvl2-2b": dict(
+        check=dict(batch=4, prompt_len=256, steps=16, num_layers=2),
+        forward_kernel=None, gate="logits"),
+    "musicgen-medium": dict(
+        check=dict(batch=4, prompt_len=256, steps=16, num_layers=2),
+        forward_kernel=None, gate="logits"),
 }
 LM_LOGITS_ATOL = 1e-3
 KNN_HIT_MIN = 0.9
@@ -1668,37 +1732,75 @@ def synced(fn):
     return out, time.perf_counter() - t0
 
 
-def mamba_layer_check(params, cfg, seq, prompt_len: int) -> dict:
-    """Each Mamba2 layer on its own, fed the full forward's input to that
-    layer: the full sequence (the SSD kernel over all rows), the prompt
-    alone (the kernel, giving the prefill state), then the recurrent
-    decode of the remaining rows from that state, one row at a time.
-    Returns the largest differences from the full sequence's outputs,
-    over all layers, of the prompt's rows and of the decoded rows."""
+def kernel_layers(cfg, kernel: str) -> int:
+    """The layers of ``cfg``'s plan that launch ``kernel`` once a full
+    forward or a decode step: the SSD in each Mamba2 layer, flash-decode
+    in each attention layer and each invocation of a shared block."""
+    from repro_torch.common.config import BlockKind
+    mamba = sum(k == BlockKind.MAMBA2 for k in cfg.layer_kinds())
+    return mamba if kernel == "ssd" else cfg.num_layers - mamba
+
+
+def plan_layer_check(params, cfg, seq, prompt_len: int) -> dict:
+    """Each layer of the plan on its own, fed the full forward's input to
+    that layer: the full sequence, the prompt alone (giving the prefill
+    state, or the shared block's K and V), then the decode of the
+    remaining rows from that state, one row at a time (a shared
+    invocation's through flash-decode, its K and V grown to the
+    sequence). Returns the largest differences from the full sequence's
+    outputs, over all layers and by group, of the prompt's rows and of
+    the decoded rows."""
     import torch
-    from repro_torch.models.transformer import _mamba_layer_fwd
-    blocks = params["blocks"]["mamba2"]
+    import torch.nn.functional as F
+    from repro_torch.models.transformer import (_attn_layer_fwd,
+                                                _layer_params,
+                                                _mamba_layer_fwd, build_plan)
     x = params["embedding"][seq]
-    err_prefill = err_decode = scale = 0.0
-    for layer in range(cfg.num_layers):
-        p = {k: w[layer] for k, w in blocks.items()}
-        full, _ = _mamba_layer_fwd(p, cfg, x)
-        pre, st = _mamba_layer_fwd(p, cfg, x[:, :prompt_len])
-        st = {k: v.clone() for k, v in st.items()}
-        dec = []
-        for t in range(prompt_len, seq.shape[1]):
-            out, st = _mamba_layer_fwd(p, cfg, x[:, t:t + 1], st,
-                                       decode=True)
-            dec.append(out)
-        err_prefill = max(err_prefill, float(
-            (pre - full[:, :prompt_len]).abs().max()))
-        err_decode = max(err_decode, float(
-            (torch.cat(dec, dim=1) - full[:, prompt_len:]).abs().max()))
-        scale = max(scale, float(full.abs().max()))
-        x = full
-    return {"layer_prefill_max_abs_err": err_prefill,
-            "layer_decode_max_abs_err": err_decode,
-            "layer_output_scale": scale}
+    s, dev = seq.shape[1], seq.device
+    by_group = {}
+    for seg in build_plan(cfg)[0]:
+        blocks = params["blocks"][seg.group]
+        for j in range(seg.length):
+            p = _layer_params(blocks, seg, j)
+            if seg.group == "mamba2":
+                full, _ = _mamba_layer_fwd(p, cfg, x)
+                pre, st = _mamba_layer_fwd(p, cfg, x[:, :prompt_len])
+                st = {k: v.clone() for k, v in st.items()}
+            else:
+                rows = torch.arange(s, device=dev)[None]
+                full, _, _ = _attn_layer_fwd(p, cfg, x, rows, seg.spec)
+                pre, _, kv = _attn_layer_fwd(p, cfg, x[:, :prompt_len],
+                                             rows[:, :prompt_len], seg.spec,
+                                             build_cache=True)
+                st = {k: F.pad(v, (0, 0, 0, 0, 0, s - prompt_len))
+                      for k, v in kv.items()}
+            dec = []
+            for t in range(prompt_len, s):
+                if seg.group == "mamba2":
+                    out, st = _mamba_layer_fwd(p, cfg, x[:, t:t + 1], st,
+                                               decode=True)
+                else:
+                    pos = torch.full((seq.shape[0],), t, dtype=torch.int32,
+                                     device=dev)
+                    out, _, st = _attn_layer_fwd(p, cfg, x[:, t:t + 1],
+                                                 None, seg.spec, kv=st,
+                                                 pos=pos)
+                dec.append(out)
+            g = by_group.setdefault(seg.group, {
+                "prefill": 0.0, "decode": 0.0, "scale": 0.0, "layers": 0})
+            g["prefill"] = max(g["prefill"], float(
+                (pre - full[:, :prompt_len]).abs().max()))
+            g["decode"] = max(g["decode"], float(
+                (torch.cat(dec, dim=1) - full[:, prompt_len:]).abs().max()))
+            g["scale"] = max(g["scale"], float(full.abs().max()))
+            g["layers"] += 1
+            x = full
+    return {"layer_prefill_max_abs_err": max(
+                g["prefill"] for g in by_group.values()),
+            "layer_decode_max_abs_err": max(
+                g["decode"] for g in by_group.values()),
+            "layer_output_scale": max(g["scale"] for g in by_group.values()),
+            "layer_errors_by_group": by_group}
 
 
 def stream_serve(params, cfg, prompts, dev, *, max_new: int, slots: int,
@@ -1887,10 +1989,14 @@ def lm_float32_check(dev, arch: str) -> dict:
     """Teacher-forced: prefill, then greedy decode through ``decode_step``
     from the prefill cache; each step's logits are compared with the full
     forward's at that position over the sequence decoded so far, and the
-    greedy tokens with its argmax. With the spec's gate "logits" these
+    greedy tokens with its argmax. A frontend config's sequence is seeded
+    embeddings [B, S + T, F]: the prompt's S are prefilled and the next T
+    decoded one at a time (the argmax of each step held to the full
+    forward's). With the spec's gate "logits" these
     must agree within LM_LOGITS_ATOL and be equal; with "layers"
-    (mamba2) every layer's prompt and decoded outputs must agree with the
-    full sequence's within LM_LOGITS_ATOL (:func:`mamba_layer_check`),
+    (mamba2, zamba2) every layer's prompt and decoded outputs must agree
+    with the full sequence's within LM_LOGITS_ATOL
+    (:func:`plan_layer_check`),
     and the end-to-end numbers are recorded beside the same-kernel
     rounding floor (the prefill's last logits against the full
     forward's). Float32 weights at the full width, so that both sides
@@ -1911,8 +2017,16 @@ def lm_float32_check(dev, arch: str) -> dict:
         "check"].get("num_layers", full_cfg.num_layers))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                          device=dev)
-    prompt = torch.as_tensor(np.random.default_rng(7).integers(
-        0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+    rng = np.random.default_rng(7)
+    emb = None
+    if cfg.frontend:
+        emb = torch.as_tensor(rng.normal(size=(
+            batch, prompt_len + steps, cfg.frontend_dim)).astype(
+                np.float32), device=dev)
+        prompt = emb[:, :prompt_len]
+    else:
+        prompt = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (batch, prompt_len)), device=dev)
     before = launch_counts()
     t0 = time.perf_counter()
     logits, cache = prefill_step(params, prompt, cfg=cfg)
@@ -1922,11 +2036,13 @@ def lm_float32_check(dev, arch: str) -> dict:
     for i in range(steps):
         pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
                          device=dev)
-        nxt, lg, cache = decode_step(params, cache, toks[-1][:, None], pos,
-                                     cfg=cfg)
+        inp = toks[-1][:, None] if emb is None else \
+            emb[:, prompt_len + i:prompt_len + i + 1]
+        nxt, lg, cache = decode_step(params, cache, inp, pos, cfg=cfg)
         step_logits.append(lg)
         toks.append(nxt.long())
-    seq = torch.cat([prompt, torch.stack(toks[:steps], dim=1)], dim=1)
+    seq = emb if emb is not None else \
+        torch.cat([prompt, torch.stack(toks[:steps], dim=1)], dim=1)
     full, _, _ = forward(params, cfg, seq)
     full = full.float()
     got = torch.stack(step_logits, dim=1)
@@ -1957,7 +2073,7 @@ def lm_float32_check(dev, arch: str) -> dict:
         res["first_token_difference"] = next(
             (i for i in range(steps) if not torch.equal(
                 want.argmax(-1)[:, i], toks[i + 1])), None)
-        res.update(mamba_layer_check(params, cfg, seq, prompt_len))
+        res.update(plan_layer_check(params, cfg, seq, prompt_len))
         log(f"{arch} float32 check, layer by layer over {cfg.num_layers} "
             f"layers: prompt rows max abs err "
             f"{res['layer_prefill_max_abs_err']:.3g}, decoded rows "
@@ -1976,7 +2092,7 @@ def lm_float32_check(dev, arch: str) -> dict:
     if not ok:
         raise AssertionError(f"{arch} float32 check failed: {res}")
     kern = spec["forward_kernel"]
-    if kern and res["launches"][kern] != 2 * cfg.num_layers:
+    if kern and res["launches"][kern] != 2 * kernel_layers(cfg, kern):
         raise AssertionError(f"{kern} launched {res['launches'][kern]} times"
                              f" in 2 full forwards and {steps} decode steps")
     return res
@@ -2164,7 +2280,7 @@ def lm_path(dev, arch: str) -> dict:
             len(c.tokens) != max_new for c in batcher.done):
         raise AssertionError("serving: a request did not complete")
     kern = spec["step_kernel"]
-    if kern and serving_launches[kern] != cfg.num_layers * steps:
+    if kern and serving_launches[kern] != kernel_layers(cfg, kern) * steps:
         raise AssertionError(f"{kern} launched {serving_launches[kern]} "
                              f"times in {steps} decode steps")
     if spec["forward_kernel"] and fwd_in_decode:
@@ -2261,10 +2377,11 @@ def lm_path(dev, arch: str) -> dict:
                              f"{spec['kernels']} to launch and "
                              f"{spec['absent']} not to")
     kern = spec["forward_kernel"]
-    if kern and res["launches"][kern] != cfg.num_layers * forwards:
+    if kern and res["launches"][kern] != kernel_layers(cfg, kern) * forwards:
         raise AssertionError(f"{kern} launched {res['launches'][kern]} "
                              f"times in {forwards} full forwards of "
-                             f"{cfg.num_layers} layers")
+                             f"{kernel_layers(cfg, kern)} layers that run "
+                             f"it")
     del params, batcher, ds
     torch.cuda.empty_cache()
     return res
@@ -2579,6 +2696,153 @@ def moe_path(dev) -> dict:
     if res["phase_s"] > PHASE13_LIMIT_S:
         raise AssertionError(f"phase 13 took {res['phase_s']:.1f} s, over "
                              f"its {PHASE13_LIMIT_S:.0f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the hybrid stack (zamba2-7b) and the frontends
+# ---------------------------------------------------------------------------
+
+PHASE14_LIMIT_S = 120.0
+# 14c: zamba2-7b's train step at full width, bf16, depth 12 (two shared
+# invocations; 4.9 GB of float32 moments), batch x seq, steps
+HYBRID_TRAIN = dict(batch=4, seq=256, steps=3, num_layers=12)
+# 14d: the frontends at full depth in bf16: a prefill of batch x
+# prompt_len embeddings, then `steps` decode steps on [batch, 1, F]
+FRONTEND_SERVE = dict(batch=8, prompt_len=256, steps=16, seed=15)
+# phase 14 starts with less than this allocated on the card
+PHASE14_START_BYTES = 2 * 2 ** 30
+
+
+def frontend_serve(dev, arch: str) -> dict:
+    """14d: ``arch`` at full width and depth in bf16: a prefill of seeded
+    embeddings, then greedy decode steps through ``decode_step`` on
+    seeded [B, 1, F] stand-ins, each step timed on the host clock around
+    a synced call; flash-decode once a layer and step, the SSD never."""
+    import torch
+    from repro_torch.common.registry import get_arch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.transformer import grow_cache, init_params
+    from repro_torch.serving.decode import decode_step, prefill_step
+    cfg = get_arch(arch)
+    batch, plen, steps = (FRONTEND_SERVE[k] for k in ("batch", "prompt_len",
+                                                      "steps"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    n_params = sum(t.numel() for t in params["blocks"]["attention"].values())
+    n_params += sum(t.numel() for k, t in params.items() if k != "blocks")
+    emb = torch.as_tensor(np.random.default_rng(FRONTEND_SERVE["seed"])
+                          .normal(size=(batch, plen + steps,
+                                        cfg.frontend_dim))
+                          .astype(np.float32), device=dev)
+    prefill_step(params, emb[:, :plen], cfg=cfg)             # warm-up
+    before = launch_counts()
+    (logits, cache), prefill_s = synced(lambda: prefill_step(
+        params, emb[:, :plen], cfg=cfg))
+    cache = grow_cache(cache, plen + steps)
+    after_prefill = launch_counts()
+    times, finite = [], bool(torch.isfinite(logits).all())
+    for i in range(steps):
+        pos = torch.full((batch,), plen + i, dtype=torch.int32, device=dev)
+        (nxt, lg, cache), dt = synced(lambda: decode_step(
+            params, cache, emb[:, plen + i:plen + i + 1], pos, cfg=cfg))
+        finite &= bool(torch.isfinite(lg).all())
+        times.append(dt)
+    after = launch_counts()
+    out = {"arch": arch, "num_layers": cfg.num_layers, "params": n_params,
+           "param_bytes": n_params * 2, "batch": batch, "prompt_len": plen,
+           "steps": steps, "prefill_ms": 1e3 * prefill_s,
+           "decode_step_ms_median": 1e3 * float(np.median(times)),
+           "decode_step_ms_mean": 1e3 * float(np.mean(times)),
+           "tokens_per_s": batch * steps / float(np.sum(times)),
+           "launches_prefill": {k: after_prefill[k] - before[k]
+                                for k in after},
+           "launches_decode": {k: after[k] - after_prefill[k]
+                               for k in after},
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "finite": finite}
+    del params, cache, logits, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"14d {arch} ({cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+        f"params, bf16): prefill {batch} x {plen} embeddings "
+        f"{out['prefill_ms']:.2f} ms, decode step "
+        f"{out['decode_step_ms_median']:.2f} ms (median of {steps}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, launches in decode "
+        f"{ {k: v for k, v in out['launches_decode'].items() if v} }, "
+        f"peak {out['peak_device_bytes'] / 2**30:.2f} GiB")
+    want = {k: 0 for k in after}
+    want["decode_attention"] = cfg.num_layers * steps
+    if not finite or out["launches_decode"] != want or any(
+            out["launches_prefill"].values()):
+        raise AssertionError(f"14d {arch}: {out} (decode launches "
+                             f"expected {want}, none in prefill)")
+    return out
+
+
+def hybrid_path(dev) -> dict:
+    """Phase 14: 14a the float32 checks of zamba2-7b (depth 12, held layer
+    by layer along its plan), internvl2-2b and musicgen-medium (depth 2,
+    on embeddings); 14b zamba2-7b's kNN-LM serving at full width in bf16,
+    all 81 layers (:func:`lm_path`); 14c its train step at full width,
+    depth 12, and the reduced config at depth 12 card against CPU; 14d
+    the frontends at full depth in bf16 (:func:`frontend_serve`).
+    Flash-decode's plain version must never run on the card; the launch
+    counts are 14b's and 14d's; the phase starts with less than
+    PHASE14_START_BYTES allocated and raises past PHASE14_LIMIT_S."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"allocated_at_start": torch.cuda.memory_allocated()}
+    if res["allocated_at_start"] >= PHASE14_START_BYTES:
+        raise AssertionError(f"phase 14 starts with "
+                             f"{res['allocated_at_start'] / 2**30:.2f} GiB "
+                             f"allocated")
+    calls, restore = counting_plain_decode()
+    try:
+        res["float32_check"] = {arch: lm_float32_check(dev, arch) for arch
+                                in (HYBRID_ARCH,) + FRONTEND_ARCHS}
+        res["serving"] = lm_path(dev, HYBRID_ARCH)
+        counts = launch_counts()
+        res["frontends"] = {arch: frontend_serve(dev, arch)
+                            for arch in FRONTEND_ARCHS}
+        after = launch_counts()
+    finally:
+        restore()
+    res["plain_decode_calls"] = dict(calls)
+    res["launches"] = {k: res["serving"]["launches"][k] + after[k]
+                       - counts[k] for k in after}
+    res["train"] = train_full_width(dev, HYBRID_ARCH, HYBRID_TRAIN["batch"],
+                                    HYBRID_TRAIN["seq"],
+                                    HYBRID_TRAIN["steps"],
+                                    num_layers=HYBRID_TRAIN["num_layers"])
+    checks = {}
+    try:
+        mesh = make_local_mesh("cuda")
+        res["train_card_vs_cpu"] = train_card_vs_cpu(
+            dev, HYBRID_ARCH, mesh, checks,
+            num_layers=HYBRID_TRAIN["num_layers"], gate="layers")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: launches {res['launches']}; plain flash-decode calls "
+        f"{res['plain_decode_calls']}; {res['phase_s']:.1f} s")
+    if calls.get("cuda", 0):
+        raise AssertionError(f"phase 14: flash-decode's plain version ran "
+                             f"on the card {calls['cuda']} times")
+    if res["phase_s"] > PHASE14_LIMIT_S:
+        raise AssertionError(f"phase 14 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE14_LIMIT_S:.0f} s")
     return res
 
 
@@ -3741,6 +4005,16 @@ TRAIN_LR = 3e-3
 # the last padded
 TRAIN_CPU_TOL = 1e-4
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 8, 80, 3
+# 14c's gate "layers" (zamba2 at depth 12): ten random Mamba2 layers
+# amplify float32 rounding from layer to layer, so that the CPU's own
+# float32 step parts from its float64 step by ~1.7e-3 of a leaf's largest
+# |g| (and its losses by ~2e-2 at step 3, Adam turning near-zero
+# gradients' signs into whole steps). There each layer of the plan is held
+# on its own within TRAIN_CPU_TOL (fed the CPU's input to it and a seeded
+# output cotangent), the first loss within TRAIN_CPU_TOL, and the card's
+# end-to-end gradients and losses against the CPU's float64 step within
+# TRAIN_F32_FLOOR_FACTOR times the CPU float32's own distance from it
+TRAIN_F32_FLOOR_FACTOR = 4.0
 # then the reference test's run (tests/test_training.py::
 # test_train_loss_decreases): its optimizer, batch, sequence and criterion
 REF_TEST_OPT = dict(lr=5e-3, warmup_steps=5, total_steps=120,
@@ -3873,11 +4147,64 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
     return out
 
 
-def train_card_vs_cpu(dev, arch: str, mesh, checks: dict) -> dict:
-    """11c: the reduced config trained on the card (the SSD kernels) and
-    on the CPU (plain versions) from the same parameters and batches; then
-    the reference test's 60-step run on the card through
-    ``make_train_step`` and ``init_sharded`` on ``mesh``."""
+def plan_layer_grads(params, cfg, b, dev, checks: dict) -> dict:
+    """Each layer of ``cfg``'s plan on its own, fed the CPU's full forward
+    input to it (batch ``b``) and a seeded output cotangent: the gradients
+    of its parameters and of its input on the card against the CPU's, as
+    a share of each one's largest |g|. Returns the largest share by group
+    (a shared invocation is held on its own; the sum over invocations is
+    the end-to-end step's). The card's launches go to ``checks``."""
+    import torch
+    from repro_torch.models.transformer import (_attn_layer_fwd,
+                                                _layer_params,
+                                                _mamba_layer_fwd, build_plan)
+    gen = torch.Generator().manual_seed(11)
+    x = params["embedding"][torch.from_numpy(b.inputs)]
+    rows = torch.arange(x.shape[1])[None]
+    by_group: dict = {}
+    for seg in build_plan(cfg)[0]:
+        for j in range(seg.length):
+            p = _layer_params(params["blocks"][seg.group], seg, j)
+
+            def grads(d, cot):
+                leaves = {k: v.detach().to(d, copy=True).requires_grad_(True)
+                          for k, v in p.items()}
+                xx = x.detach().to(d, copy=True).requires_grad_(True)
+                if seg.group == "mamba2":
+                    out = _mamba_layer_fwd(leaves, cfg, xx)[0]
+                else:
+                    out = _attn_layer_fwd(leaves, cfg, xx, rows.to(d),
+                                          seg.spec)[0]
+                names = list(leaves) + ["input"]
+                got = torch.autograd.grad(
+                    out, list(leaves.values()) + [xx], cot.to(d),
+                    allow_unused=True)
+                return out.detach(), {k: g for k, g in zip(names, got)
+                                      if g is not None}
+
+            cot = torch.randn(x.shape, generator=gen, dtype=x.dtype)
+            out, g_cpu = grads("cpu", cot)
+            _, g_card = uncounted(checks, lambda: grads(dev, cot))
+            share = max(float((g_card[k].cpu() - g).abs().max())
+                        / float(g.abs().max()) for k, g in g_cpu.items())
+            by_group[seg.group] = max(by_group.get(seg.group, 0.0), share)
+            x = out
+    return by_group
+
+
+def train_card_vs_cpu(dev, arch: str, mesh, checks: dict,
+                      num_layers: int = 0, gate: str = "steps") -> dict:
+    """11c: the reduced config (at ``num_layers`` when given) trained on
+    the card (the SSD kernels) and on the CPU (plain versions) from the
+    same parameters and batches; then the reference test's 60-step run on
+    the card through ``make_train_step`` and ``init_sharded`` on
+    ``mesh``. With ``gate`` "steps" the first step's gradients and every
+    step's loss must agree within TRAIN_CPU_TOL; with "layers" each layer
+    (:func:`plan_layer_grads`) and the first loss must, and the end-to-end
+    gradients and losses are held against the CPU's float64 step
+    (TRAIN_F32_FLOOR_FACTOR)."""
+    import dataclasses
+
     import torch
     from repro_torch.common.registry import get_arch
     from repro_torch.data.synthetic import SyntheticLM
@@ -3887,6 +4214,8 @@ def train_card_vs_cpu(dev, arch: str, mesh, checks: dict) -> dict:
     from repro_torch.train.train_step import (init_sharded, make_train_step,
                                               train_step)
     cfg = get_arch(arch).reduced()
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     card = TT.map_tree(lambda t: t.to(dev, copy=True), cpu)
     data = iter(SyntheticLM(cfg, batch=TRAIN_CPU_BATCH,
@@ -3898,9 +4227,23 @@ def train_card_vs_cpu(dev, arch: str, mesh, checks: dict) -> dict:
     shares = {k: float((g.cpu() - g_cpu[k]).abs().max())
               / float(g_cpu[k].abs().max()) for k, g in g_card.items()}
     zero = [k for k, g in g_card.items() if not bool(g.abs().max() > 0)]
+    out = {}
+    sides = [("cpu", cpu, "cpu"), ("card", card, dev)]
+    if gate == "layers":
+        out["layer_grad_err_share"] = plan_layer_grads(cpu, cfg, batches[0],
+                                                       dev, checks)
+        cpu64 = TT.map_tree(lambda t: t.double(), cpu)
+        _, g_64 = _step_grads(cpu64, cfg, batches[0], "cpu")
+
+        def share_64(g):
+            return max(float((g[k].cpu().double() - g_64[k]).abs().max())
+                       / float(g_64[k].abs().max()) for k in g_64)
+        out["grad_err_share_vs_float64"] = {"cpu": share_64(g_cpu),
+                                            "card": share_64(g_card)}
+        sides.append(("cpu64", cpu64, "cpu"))
     opt = AdamWConfig(**REF_TEST_OPT)
     runs = {}
-    for name, params, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+    for name, params, d in sides:
         state = init_opt_state(params)
         losses = []
         for b in batches:
@@ -3921,21 +4264,39 @@ def train_card_vs_cpu(dev, arch: str, mesh, checks: dict) -> dict:
         run.append(float(m["loss"]))
     run_s = time.perf_counter() - t
     first, last = float(np.mean(run[:5])), float(np.mean(run[-5:]))
-    out = {"max_grad_err_share": max(shares.values()),
-           "grad_err_share": shares, "leaves_without_gradient": zero,
-           "losses_cpu": runs["cpu"], "losses_card": runs["card"],
-           "max_loss_diff": loss_diff, "run_losses": run,
-           "run_first5_mean": first, "run_last5_mean": last,
-           "run_s": run_s}
+    out.update({"max_grad_err_share": max(shares.values()),
+                "grad_err_share": shares, "leaves_without_gradient": zero,
+                "losses_cpu": runs["cpu"], "losses_card": runs["card"],
+                "max_loss_diff": loss_diff, "run_losses": run,
+                "run_first5_mean": first, "run_last5_mean": last,
+                "run_s": run_s, "gate": gate})
     log(f"11c {arch} reduced: card vs CPU losses {runs['card']} / "
         f"{runs['cpu']} (max diff {loss_diff:.3g}), step-1 gradients "
         f"within {out['max_grad_err_share']:.3g} of each leaf's largest "
         f"|g|, leaves without gradient {zero}; {LOSS_RUN['steps']} steps "
         f"on the card in {run_s:.2f} s: mean loss {first:.4f} -> "
         f"{last:.4f}")
-    if loss_diff > TRAIN_CPU_TOL or out["max_grad_err_share"] > \
-            TRAIN_CPU_TOL or zero or not np.isfinite(run).all() or \
-            not last < first - LOSS_RUN["margin"]:
+    bad = bool(zero) or not np.isfinite(run).all() or \
+        not last < first - LOSS_RUN["margin"]
+    if gate == "layers":
+        losses_64 = {k: float(np.abs(np.subtract(runs[k], runs["cpu64"]))
+                              .max()) for k in ("cpu", "card")}
+        out["losses_cpu64"] = runs["cpu64"]
+        out["max_loss_diff_vs_float64"] = losses_64
+        g64 = out["grad_err_share_vs_float64"]
+        log(f"11c {arch} reduced, layer by layer: gradients within "
+            f"{fmt_share(out['layer_grad_err_share'])} of their largest; "
+            f"end to end against the CPU's float64 step: gradients card "
+            f"{g64['card']:.3g} (CPU float32 {g64['cpu']:.3g}), losses card "
+            f"{losses_64['card']:.3g} (CPU float32 {losses_64['cpu']:.3g})")
+        bad |= max(out["layer_grad_err_share"].values()) > TRAIN_CPU_TOL
+        bad |= abs(runs["card"][0] - runs["cpu"][0]) > TRAIN_CPU_TOL
+        bad |= g64["card"] > TRAIN_F32_FLOOR_FACTOR * g64["cpu"]
+        bad |= losses_64["card"] > TRAIN_F32_FLOOR_FACTOR * losses_64["cpu"]
+    else:
+        bad |= loss_diff > TRAIN_CPU_TOL or \
+            out["max_grad_err_share"] > TRAIN_CPU_TOL
+    if bad:
         raise AssertionError(f"11c {arch}: {out}")
     return out
 
@@ -4124,6 +4485,7 @@ def main() -> int:
     result["training"] = training_path()
     result["lm_sliding"] = sliding_path(dev)
     result["lm_moe"] = moe_path(dev)
+    result["lm_hybrid"] = hybrid_path(dev)
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -4137,7 +4499,7 @@ def main() -> int:
                             ("main_path", "lm_path", "ssm_path",
                              "serving", "store", "maintenance",
                              "multi_device", "training", "lm_sliding",
-                             "lm_moe")),
+                             "lm_moe", "lm_hybrid")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -73,12 +73,15 @@ def index_from_arrays(config: Mapping, meta: Mapping,
     return index
 
 
-LM_TOP_KEYS = ("embedding", "final_norm", "lm_head")
-# the keys of each ported layer group, stacked on a leading layer axis
+LM_TOP_KEYS = ("frontend_proj", "embedding", "final_norm", "lm_head")
+_ATTN_KEYS = ("norm_attn", "norm_mlp", "w_q", "w_k", "w_v", "w_o", "q_norm",
+              "k_norm", "w_gate", "w_in", "w_out", "router", "e_gate", "e_in",
+              "e_out")
+# the keys of each layer group: stacked on a leading layer axis, but for
+# the one shared block (zamba2), which is not stacked
 LM_LAYER_KEYS = {
-    "attention": ("norm_attn", "norm_mlp", "w_q", "w_k", "w_v", "w_o",
-                  "q_norm", "k_norm", "w_gate", "w_in", "w_out",
-                  "router", "e_gate", "e_in", "e_out"),
+    "attention": _ATTN_KEYS,
+    "shared_attention": _ATTN_KEYS,
     "mamba2": ("norm_in", "in_proj", "bc_proj", "dt_w", "dt_bias", "a_log",
                "d_skip", "conv_w", "conv_b", "ssm_norm", "out_proj"),
 }
@@ -96,32 +99,29 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def lm_params_from_reference(params: Mapping, cfg: ArchConfig,
                              device: DeviceLike = "cuda") -> dict:
     """The port's parameters of ``cfg`` from the reference's parameter
-    tree as numpy arrays: ``embedding``, ``final_norm`` and ``lm_head`` at
-    the top, and each layer group's weights (``blocks/attention``,
-    ``blocks/mamba2``; ``LM_LAYER_KEYS``) with their leading layer axis.
+    tree as numpy arrays: ``LM_TOP_KEYS`` at the top (``frontend_proj``
+    for a frontend config), and each layer group's weights
+    (``blocks/attention``, ``blocks/mamba2`` with their leading layer
+    axis, ``blocks/shared_attention`` without one; ``LM_LAYER_KEYS``).
     Every array keeps its dtype (the Mamba2 ``a_log``, ``dt_bias`` and
-    ``d_skip`` and the MoE ``router`` stay float32 in a bf16 model). Other groups and keys are
-    not ported yet and raise."""
-    from repro_torch.models.transformer import _check_ported
+    ``d_skip`` and the MoE ``router`` stay float32 in a bf16 model). A
+    group or key the port does not know raises ``ValueError``."""
     dev = resolve_device(device)
-    _check_ported(cfg)
     blocks = params.get("blocks", {})
     extra = set(blocks) - set(LM_LAYER_KEYS)
     if extra:
-        raise NotImplementedError(f"parameter groups {sorted(extra)} are not "
-                                  f"ported yet")
+        raise ValueError(f"unknown parameter groups {sorted(extra)}")
     unknown = set(params) - set(LM_TOP_KEYS) - {"blocks"}
     if unknown:
-        raise NotImplementedError(f"parameters {sorted(unknown)} are not "
-                                  f"ported yet")
+        raise ValueError(f"unknown parameters {sorted(unknown)}")
     out = {key: _tensor(params[key], dev) for key in LM_TOP_KEYS
            if key in params}
     out["blocks"] = {}
     for group, layers in blocks.items():
         unknown = set(layers) - set(LM_LAYER_KEYS[group])
         if unknown:
-            raise NotImplementedError(f"{group} layer parameters "
-                                      f"{sorted(unknown)} are not ported yet")
+            raise ValueError(f"unknown {group} layer parameters "
+                             f"{sorted(unknown)}")
         out["blocks"][group] = {key: _tensor(a, dev)
                                 for key, a in layers.items()}
     return out

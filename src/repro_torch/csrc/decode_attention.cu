@@ -50,9 +50,9 @@
 //   * a cache row is hd * sizeof(T) / 16 pieces of 16 bytes (E = 16 /
 //     sizeof(T) elements each), read by L neighbouring lanes, a power of
 //     two: at hd = 16 to 128 one piece a lane, as many lanes as pieces; at
-//     hd = 80 and 240 the lanes round up to the next power of two (10
-//     bf16 pieces on 16 lanes, 30 on 32, 20 float32 pieces on 32) and the
-//     idle lanes hold zeros; at hd = 240 in float32 (60 pieces) a lane
+//     hd = 80, 112 and 240 the lanes round up to the next power of two
+//     (10 or 14 bf16 pieces on 16 lanes, 30 on 32, 20 or 28 float32
+//     pieces on 32) and the idle lanes hold zeros; at hd = 240 in float32 (60 pieces) a lane
 //     holds two, pieces sub and sub + 32, so that each load instruction
 //     still reads neighbouring addresses. Each lane keeps E (or 2E)
 //     elements of the G query rows; the dot product is finished by
@@ -547,6 +547,7 @@ long long by_head_dim(const Params& p, int hd, int G, Op op,
     case 32: return by_groups<T, 32>(p, G, op, st, out);
     case 64: return by_groups<T, 64>(p, G, op, st, out);
     case 80: return by_groups<T, 80>(p, G, op, st, out);
+    case 112: return by_groups<T, 112>(p, G, op, st, out);
     case 128: return by_groups<T, 128>(p, G, op, st, out);
     case 240: return by_groups<T, 240>(p, G, op, st, out);
   }

@@ -15,7 +15,7 @@ import torch
 from repro_torch.common.device import sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 80, 128, 240)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 240)
 MAX_GROUPS = 16
 # a tile: the cache rows of one pass of a block, 32 KB of K and V (8 warps
 # with four 16-byte row loads a lane in flight, at G <= 4), rows counted

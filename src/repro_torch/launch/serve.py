@@ -9,7 +9,9 @@ serving engine (port of ``repro.launch.serve``).
 
 The model is the ``.reduced()`` variant of ``--arch`` (as in the
 reference launcher), its weights drawn from a seeded generator. It runs
-on the CUDA device unless ``--device cpu`` is given. With
+on the CUDA device unless ``--device cpu`` is given. A frontend arch
+(internvl2-2b, musicgen-medium) is prompted with seeded embeddings [B,
+S, F], decodes over zero embeddings and refuses ``--retrieval``. With
 ``--retrieval`` the datastore is served by a ``ServingEngine`` through
 ``open_datastore_client`` (int8 with ``--quantize``), and every decode
 step looks the last token's hidden state up through ``knn_probs(...,
@@ -96,8 +98,14 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     rng = np.random.default_rng(0)
-    prompt = torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, size=(args.batch, args.prompt_len)), device=dev)
+    if cfg.frontend:    # precomputed embeddings [B, S, F] stand for tokens
+        prompt = torch.as_tensor(rng.normal(size=(
+            args.batch, args.prompt_len, cfg.frontend_dim)).astype(
+                np.float32), device=dev)
+    else:
+        prompt = torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, size=(args.batch, args.prompt_len)),
+            device=dev)
 
     ds = None
     ds_client = None
@@ -106,6 +114,8 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     try:
         with contextlib.ExitStack() as stack:
             if args.retrieval:
+                if cfg.frontend:
+                    raise SystemExit("--retrieval expects a token-input arch")
                 corpus = rng.integers(0, cfg.vocab_size, size=(8, 64))
                 pyr = PyramidConfig(metric="l2", num_shards=4,
                                     meta_size=32, sample_size=400,
@@ -156,6 +166,9 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
                      time.time() - t0)
 
             tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+            if cfg.frontend:    # decode over embedding stand-ins
+                tok_emb = torch.zeros((args.batch, 1, cfg.frontend_dim),
+                                      dtype=torch.float32, device=dev)
             out_tokens = [tok[:, 0].cpu().numpy()]
             t0 = time.time()
             for t in range(args.tokens - 1):
@@ -163,7 +176,8 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
                     pos = torch.full((args.batch,), args.prompt_len + t,
                                      dtype=torch.int32, device=dev)
                     nxt, step_logits, cache = decode_step(
-                        params, cache, tok, pos, cfg=cfg)
+                        params, cache, tok_emb if cfg.frontend else tok, pos,
+                        cfg=cfg)
                     if ds is not None:
                         # demo-grade retrieval key: the context-free
                         # hidden state of the last token, as in the

@@ -1,21 +1,23 @@
 """Model assembly: the layer plan, parameters, caches and the forward pass
-(port of ``repro.models.transformer`` for the ``attention`` and ``mamba2``
-groups).
+(port of ``repro.models.transformer``).
 
 The layer stack of an ArchConfig is cut into *segments*: maximal runs of
 layers with the same (parameter group, static behaviour). Each group's
 parameters are stacked on a leading layer axis, and a segment runs as a
 Python loop over its layers (the reference's ``lax.scan``).
 
-Ported: the ``attention`` group with full, sliding-window and
-local-global attention, dense and MoE MLPs (``models/moe.py``; a layer's
-load-balancing loss is summed into ``forward``'s aux), the decode caches
-(a sliding layer's in a ring of at most ``window`` slots, cache group
-``attention@swa``) and prefill; the ``mamba2`` group (Mamba2 blocks,
-whose prefill runs the SSD kernel) with its recurrent decode state. Not
-ported yet (ROADMAP.md, section 1): the ``shared_attention`` group
-(zamba2) and the frontends; each raises ``NotImplementedError``. Remat
-is per-layer (or per-segment)
+Groups: ``attention`` (full, sliding-window and local-global attention,
+dense and MoE MLPs, ``models/moe.py``; a layer's load-balancing loss is
+summed into ``forward``'s aux), with its decode caches (a sliding
+layer's in a ring of at most ``window`` slots, cache group
+``attention@swa``); ``mamba2`` (Mamba2 blocks, whose prefill runs the SSD
+kernel) with its recurrent decode state; and ``shared_attention``
+(zamba2): ONE attention + MLP block, not stacked, run at every
+``SHARED_ATTENTION`` position of the plan, each invocation with a KV
+cache slot of its own, its gradient the sum over its invocations. A
+config with a ``frontend`` (the vision and audio stubs) takes
+precomputed embeddings [B, S, F] in place of tokens, projected by
+``frontend_proj``. Remat is per-layer (or per-segment)
 ``torch.utils.checkpoint``; mesh sharding of the activations is not
 ported (the train step runs at world size 1).
 """
@@ -40,10 +42,6 @@ from repro_torch.models.ssm import init_mamba2_params, init_ssm_state, \
     mamba2_block
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-SHARED_TODO = ("weight-tied shared attention (zamba2) is not ported yet "
-               "(ROADMAP.md section 1: shared attention)")
-FRONTEND_TODO = ("vision and audio frontends are not ported yet (ROADMAP.md "
-                 "section 1: they come with their families)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,12 +96,14 @@ def build_plan(cfg: ArchConfig) -> Tuple[List[Segment], Dict[str, int]]:
     return segments, cache_off
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.frontend:
-        raise NotImplementedError(FRONTEND_TODO)
-    for seg in build_plan(cfg)[0]:
-        if seg.group == "shared_attention":
-            raise NotImplementedError(SHARED_TODO)
+def _layer_params(blocks: dict, seg: Segment, j: int) -> dict:
+    """Layer j of a segment: its slice of the group's stacked weights, or
+    the shared block itself, which is not stacked (indexing it would take
+    a row of each weight, and a norm scale's scalar broadcasts
+    silently)."""
+    if seg.group == "shared_attention":
+        return blocks
+    return {key: w[seg.start + j] for key, w in blocks.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -118,11 +118,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     a generator seeded 0 on ``device`` when none is given), norm scales
     zero, and the Mamba2 constants of the reference. Keys follow the
     reference's tree: the layers of each group in the plan are stacked on
-    a leading axis under ``blocks/attention`` and ``blocks/mamba2``; an
-    MoE config's attention layers hold ``router`` (float32), ``e_gate``,
-    ``e_in`` and ``e_out`` in place of the dense MLP's weights."""
+    a leading axis under ``blocks/attention`` and ``blocks/mamba2``, and
+    the one shared block (zamba2) lies unstacked under
+    ``blocks/shared_attention``; an MoE config's attention layers hold
+    ``router`` (float32), ``e_gate``, ``e_in`` and ``e_out`` in place of
+    the dense MLP's weights; a frontend config has ``frontend_proj`` [F,
+    d], drawn with fan-in F."""
     dev = resolve_device(device)
-    _check_ported(cfg)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = DTYPES[cfg.dtype]
@@ -130,6 +132,7 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     kinds = cfg.layer_kinds()
     n_attn = sum(k == BlockKind.ATTENTION for k in kinds)
     n_mamba = sum(k == BlockKind.MAMBA2 for k in kinds)
+    shared = BlockKind.SHARED_ATTENTION in kinds
 
     def dense(shape, fan_in):
         return L.dense_init(shape, fan_in, dtype, generator, dev)
@@ -137,29 +140,38 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
+    def attn_layers(layers: Optional[int]) -> dict:
+        """Attention + MLP weights, stacked on ``layers`` (or one block)."""
+        lead = () if layers is None else (layers,)
+        blocks = {"norm_attn": zeros(*lead, d), "norm_mlp": zeros(*lead, d)}
+        blocks.update(init_attention_params(cfg, dtype, generator, dev,
+                                            layers=layers))
+        if cfg.moe is not None:
+            blocks.update(init_moe_params(cfg, dtype, generator, dev,
+                                          layers=layers))
+        else:
+            blocks["w_gate"] = dense(lead + (d, f), d)
+            blocks["w_in"] = dense(lead + (d, f), d)
+            blocks["w_out"] = dense(lead + (f, d), f)
+        return blocks
+
     params: dict = {"blocks": {}}
+    if cfg.frontend:
+        params["frontend_proj"] = dense((cfg.frontend_dim, d),
+                                        cfg.frontend_dim)
     params["embedding"] = dense((cfg.vocab_size, d), d)
     params["final_norm"] = zeros(d)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.vocab_size), d)
     if n_attn:
-        n = n_attn
-        blocks = {"norm_attn": zeros(n, d), "norm_mlp": zeros(n, d)}
-        blocks.update(init_attention_params(cfg, dtype, generator, dev,
-                                            layers=n))
-        if cfg.moe is not None:
-            blocks.update(init_moe_params(cfg, dtype, generator, dev,
-                                          layers=n))
-        else:
-            blocks["w_gate"] = dense((n, d, f), d)
-            blocks["w_in"] = dense((n, d, f), d)
-            blocks["w_out"] = dense((n, f, d), f)
-        params["blocks"]["attention"] = blocks
+        params["blocks"]["attention"] = attn_layers(n_attn)
     if n_mamba:
         blocks = {"norm_in": zeros(n_mamba, d)}
         blocks.update(init_mamba2_params(cfg, dtype, generator, dev,
                                          layers=n_mamba))
         params["blocks"]["mamba2"] = blocks
+    if shared:
+        params["blocks"]["shared_attention"] = attn_layers(None)
     return params
 
 
@@ -174,13 +186,14 @@ def make_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
     of [layers, batch, max_seq, KV, hd] in the model's dtype, rings of
     min(window, max_seq) rows for sliding layers (``"attention@swa"``: a
     gemma3 keeps 1,024-slot rings for its 40 local layers and full caches
-    only for the 8 global ones), and
+    only for the 8 global ones), ``{"shared_attention": {"k", "v"}}`` of
+    [invocations, batch, max_seq, KV, hd] (a slot for each invocation of
+    the shared block), and
     ``{"mamba2": {"ssm", "conv"}}`` of [layers, batch, H, N, P] float32
     and [layers, batch, W-1, d_inner] in the model's dtype. One layer's
     slice (``cache["attention"]["k"][i]``) is contiguous, and decode
     writes into it in place."""
     dev = resolve_device(device)
-    _check_ported(cfg)
     _, cache_slots = build_plan(cfg)
     dtype = DTYPES[cfg.dtype]
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -277,10 +290,10 @@ def _train_segment(blocks: dict, seg: Segment, cfg: ArchConfig,
     backward), and the whole segment under one more with
     ``remat_segments`` (one saved residual per segment). Returns (x, the
     segment's MoE aux summed over its layers, or None)."""
-    moe = seg.group == "attention" and cfg.moe is not None
+    moe = seg.group != "mamba2" and cfg.moe is not None
 
     def layer(j: int, xx: torch.Tensor):
-        p = {key: w[seg.start + j] for key, w in blocks.items()}
+        p = _layer_params(blocks, seg, j)
         if seg.group == "mamba2":
             return _mamba_layer_fwd(p, cfg, xx)[0]
         xx, aux, _ = _attn_layer_fwd(p, cfg, xx, positions, seg.spec)
@@ -311,14 +324,16 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run the model.
 
-    Train: inputs [B, S] int tokens, cache None -> (logits [B, S, V],
-      aux, None).
+    Train: inputs [B, S] int tokens (or [B, S, F] float embeddings for a
+      frontend config, cast to the model's dtype and projected by
+      ``frontend_proj``), cache None -> (logits [B, S, V], aux, None).
     Prefill: as train with build_cache=True -> the third output is a
       cache whose kv seq dim covers the prefill length (pad it with
       ``grow_cache`` before decoding), its ring groups packed by
       ``ring_pack`` to the last min(window, S) positions, and, for
       Mamba2 layers, the final SSM and conv states.
-    Decode: inputs [B, 1], cache from ``make_cache``, decode_pos [B] ->
+    Decode: inputs [B, 1] (or [B, 1, F]), cache from ``make_cache``,
+      decode_pos [B] ->
       (logits [B, 1, V], aux, cache), the cache updated in place.
     skip_head=True returns the final-norm hidden states [B, S, D] in
     place of the logits. aux is the MoE load-balancing loss summed over
@@ -329,9 +344,11 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     with ``remat`` and each segment's with ``remat_segments``, as the
     reference's ``jax.checkpoint`` does; neither changes a number.
     """
-    _check_ported(cfg)
     decode = cache is not None
-    x = params["embedding"][inputs]
+    if inputs.dim() == 3:       # a frontend's precomputed embeddings
+        x = inputs.to(DTYPES[cfg.dtype]) @ params["frontend_proj"]
+    else:
+        x = params["embedding"][inputs]
     positions = decode_pos[:, None] if decode else \
         torch.arange(x.shape[1], device=x.device)[None]
     train = not decode and not build_cache and torch.is_grad_enabled() \
@@ -349,7 +366,7 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
             continue
         auxs = []
         for j in range(seg.length):
-            p = {key: w[seg.start + j] for key, w in blocks.items()}
+            p = _layer_params(blocks, seg, j)
             state = None
             if decode:
                 layer = seg.cache_start + j

@@ -11,9 +11,9 @@ from repro_torch.models.transformer import forward
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, *, cfg: ArchConfig):
-    """One greedy decode step. tokens [B, 1]; pos [B]. Returns
-    (next_token [B] int32, logits [B, V] float32, cache), the cache
-    updated in place."""
+    """One greedy decode step. tokens [B, 1] (or [B, 1, F] embeddings for
+    a frontend arch); pos [B]. Returns (next_token [B] int32, logits
+    [B, V] float32, cache), the cache updated in place."""
     logits, _, cache = forward(params, cfg, tokens, cache=cache,
                                decode_pos=pos)
     step_logits = logits[:, 0].float()
@@ -22,6 +22,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 
 
 def prefill_step(params: dict, inputs: torch.Tensor, *, cfg: ArchConfig):
-    """Prefill: returns (logits [B, S, V], cache covering S positions)."""
+    """Prefill of inputs [B, S] tokens (or [B, S, F] embeddings for a
+    frontend arch): returns (logits [B, S, V], cache covering S
+    positions)."""
     logits, _, cache = forward(params, cfg, inputs, build_cache=True)
     return logits, cache

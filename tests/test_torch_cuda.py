@@ -554,10 +554,11 @@ def test_flash_decode_refuses_what_it_is_not_built_for(cuda):
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
                          ids=("f32", "bf16"))
-@pytest.mark.parametrize("hd", (80, 240))
+@pytest.mark.parametrize("hd", (80, 112, 240))
 @pytest.mark.parametrize("groups", (1, 2, 4, 5, 8))
 def test_flash_decode_wide_and_ragged_head_dims(cuda, groups, hd, dtype):
-    """hd = 80 and 240 (idle lanes; two pieces a lane at 240 in float32),
+    """hd = 80, 112 and 240 (idle lanes; two pieces a lane at 240 in
+    float32),
     with and without a window, over ragged rows: pos 0, S - 1, one tile,
     and between."""
     s = 700
@@ -586,6 +587,21 @@ def test_flash_decode_nine_to_sixteen_groups(cuda, groups, hd, dtype):
             flash_decode_cuda(q, k, v, pos, window),
             decode_attention_ref(q, k, v, pos, window), rtol=1e-4,
             atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_flash_decode_zamba2_shape(cuda, dtype):
+    """zamba2-7b's shared attention: 32 query heads over 32 kv heads at
+    hd = 112 (14 bf16 pieces on 16 lanes, 28 float32 pieces on 32), 8
+    slots of a 2,048-row cache at pos 0, S - 1 and between."""
+    s = 2048
+    q, k, v, pos = _decode_inputs(cuda, 8, s, 32, 32, 112, dtype,
+                                  [0, s - 1, 127, 128, 1000, 1500, 64, 2000],
+                                  112)
+    torch.testing.assert_close(flash_decode_cuda(q, k, v, pos),
+                               decode_attention_ref(q, k, v, pos), rtol=1e-4,
+                               atol=1e-4)
 
 
 # (B, S, H, KV, hd, window): gemma3-12b's local layers (1,024-slot rings
@@ -783,15 +799,16 @@ def test_topk_kernel_ties_with_d_sliced_go_to_the_lower_id(cuda, metric, k):
 # (B, S, H, P, N, chunk): the reference kernel test's shapes, aligned,
 # ragged (S not a multiple of the chunk or of the 64-row tile), S below
 # one chunk, and the full width (H 48, P 64, N 128, chunk 256); then one
-# row, a chunk and one row, a batch of long prompts at full width, and a
-# narrow head (P 16, N 32)
+# row, a chunk and one row, a batch of long prompts at full width, a
+# narrow head (P 16, N 32), and zamba2-7b's width (H 112, N 64)
 SSD_SHAPES = [(1, 64, 4, 8, 16, 16), (2, 96, 8, 16, 8, 32),
               (1, 128, 2, 8, 32, 64), (1, 50, 4, 8, 16, 16),
               (2, 33, 2, 8, 8, 32), (1, 16, 2, 4, 8, 16),
               (2, 300, 16, 16, 16, 32), (1, 100, 3, 5, 7, 256),
               (1, 513, 48, 64, 128, 256), (2, 700, 4, 64, 128, 256),
               (1, 1, 48, 64, 128, 256), (1, 257, 48, 64, 128, 256),
-              (4, 4096, 48, 64, 128, 256), (2, 300, 4, 16, 32, 64)]
+              (4, 4096, 48, 64, 128, 256), (2, 300, 4, 16, 32, 64),
+              (1, 513, 112, 64, 64, 256), (2, 300, 112, 64, 64, 256)]
 
 
 def _ssd_inputs(shape, dtype, cuda, initial):
@@ -1101,11 +1118,12 @@ def test_kmeans_distributed_seeded_on_nccl_matches_kmeans(cuda, init):
 
 # (B, S, H, P, N, chunk): ragged last chunks, one row short of a chunk,
 # mamba2-780m's layer shape at a corpus row, at the train step's batch
-# (phase 11a), and with a last chunk of one row
+# (phase 11a), with a last chunk of one row, and zamba2-7b's layer at its
+# train step's batch (phase 14c: H 112, N 64)
 SSD_BWD_SHAPES = [(2, 80, 3, 16, 16, 32), (1, 40, 2, 5, 7, 16),
                   (2, 7, 2, 3, 4, 32), (2, 300, 4, 64, 128, 64),
                   (1, 513, 48, 64, 128, 256), (4, 640, 48, 64, 128, 256),
-                  (1, 257, 4, 64, 128, 256)]
+                  (1, 257, 4, 64, 128, 256), (4, 256, 112, 64, 64, 256)]
 
 
 @pytest.mark.parametrize("final", (False, True), ids=("y", "y_final"))

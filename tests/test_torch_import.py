@@ -63,6 +63,8 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.configs.chatglm3_6b"} <= set(MODULES)
     assert {"repro_torch.models.moe", "repro_torch.configs.phi35_moe_42b",
             "repro_torch.configs.grok_1_314b"} <= set(MODULES)
+    assert {"repro_torch.configs.zamba2_7b", "repro_torch.configs.internvl2_2b",
+            "repro_torch.configs.musicgen_medium"} <= set(MODULES)
     code = ("import importlib, sys\n"
             f"for name in {MODULES!r}:\n"
             "    importlib.import_module(name)\n"

@@ -437,10 +437,12 @@ def _decode_case(b, s, h, kvh, hd, pos_mode, seed):
 
 
 # the reference kernel test's shapes (B, S, H, KV, hd), G = 2, 2, 1, 3,
-# and two with S not a multiple of the Pallas block
+# two with S not a multiple of the Pallas block, and zamba2-7b's head dim
+# (112, G = 1)
 @pytest.mark.parametrize("shape", [
     (2, 128, 8, 4, 32), (1, 300, 16, 8, 64), (3, 64, 4, 4, 16),
-    (2, 96, 6, 2, 32), (2, 130, 8, 4, 32), (1, 70, 4, 2, 16)])
+    (2, 96, 6, 2, 32), (2, 130, 8, 4, 32), (1, 70, 4, 2, 16),
+    (2, 150, 4, 4, 112)])
 @pytest.mark.parametrize("pos_mode", ["full", "start", "random"])
 def test_decode_attention_matches_reference(shape, pos_mode):
     case = _decode_case(*shape, pos_mode, seed=sum(shape) + len(pos_mode))

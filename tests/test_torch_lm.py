@@ -22,6 +22,7 @@ import torch
 
 from repro.common.config import PyramidConfig as RefPyramidConfig
 from repro.common.registry import get_arch as ref_get_arch
+from repro.common.registry import list_archs as ref_list_archs
 from repro.core import distributed as RD
 from repro.models import attention as RA
 from repro.models import transformer as RT
@@ -74,8 +75,10 @@ def _close(ours, ref, **tol):
 
 def test_config_and_registry_match_reference():
     assert list_archs() == ["chatglm3-6b", "gemma3-12b", "grok-1-314b",
-                            "h2o-danube-1.8b", "mamba2-780m",
-                            "phi3.5-moe-42b-a6.6b", "qwen3-1.7b"]
+                            "h2o-danube-1.8b", "internvl2-2b", "mamba2-780m",
+                            "musicgen-medium", "phi3.5-moe-42b-a6.6b",
+                            "qwen3-1.7b", "zamba2-7b"]
+    assert list_archs() == ref_list_archs()
     for arch in list_archs():
         for reduce in (False, True):
             ref, ours = ref_get_arch(arch), get_arch(arch)
@@ -106,18 +109,26 @@ def test_init_params_match_reference_tree(model):
 
 
 def test_unported_families_raise():
-    """Shared attention and frontends still raise; an MoE config (ported)
-    builds its parameters, with the MoE keys in place of the dense MLP's,
-    and its cache."""
+    """Every family builds its parameters and caches now: a shared
+    attention pattern one unstacked block under ``blocks/shared_attention``
+    and a KV slot an invocation, a frontend config ``frontend_proj`` [F, d]
+    beside the embedding, an MoE config the MoE keys in place of the
+    dense MLP's. None raises."""
     base = get_arch("qwen3-1.7b").reduced()
-    for cfg in (dataclasses.replace(base, block_pattern=(
-                    BlockKind.SHARED_ATTENTION,)),
-                dataclasses.replace(base, frontend="vision",
-                                    frontend_dim=16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.make_cache(cfg, 1, 8, device="cpu")
+    d, hd = base.d_model, base.resolved_head_dim
+    shared = dataclasses.replace(base, num_layers=3, block_pattern=(
+        BlockKind.SHARED_ATTENTION,))
+    blocks = TT.init_params(shared, device="cpu")["blocks"]
+    assert set(blocks) == {"shared_attention"}
+    assert blocks["shared_attention"]["norm_attn"].shape == (d,)
+    assert blocks["shared_attention"]["w_gate"].shape == (d, base.d_ff)
+    cache = TT.make_cache(shared, 1, 8, device="cpu")
+    assert cache["shared_attention"]["k"].shape == (
+        3, 1, 8, base.num_kv_heads, hd)
+    front = dataclasses.replace(base, frontend="vision", frontend_dim=16)
+    params = TT.init_params(front, device="cpu")
+    assert params["frontend_proj"].shape == (16, d)
+    assert set(TT.make_cache(front, 1, 8, device="cpu")) == {"attention"}
     moe = dataclasses.replace(base, moe=MoEConfig(4, 2))
     blocks = TT.init_params(moe, device="cpu")["blocks"]["attention"]
     assert {"router", "e_gate", "e_in", "e_out"} <= set(blocks)

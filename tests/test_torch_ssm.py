@@ -98,10 +98,10 @@ def test_init_params_and_convert_match_reference_tree(model):
         {"a_log", "dt_bias", "d_skip"}
     bad = jax.tree.map(np.asarray, rparams)
     bad["blocks"]["mamba2"]["extra"] = bad["blocks"]["mamba2"]["a_log"]
-    with pytest.raises(NotImplementedError, match="extra"):
+    with pytest.raises(ValueError, match="extra"):
         convert.lm_params_from_reference(bad, cfg, device="cpu")
-    bad["blocks"] = {"shared_attention": {}}
-    with pytest.raises(NotImplementedError, match="shared_attention"):
+    bad["blocks"] = {"unknown_group": {}}
+    with pytest.raises(ValueError, match="unknown_group"):
         convert.lm_params_from_reference(bad, cfg, device="cpu")
 
 
