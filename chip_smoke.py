@@ -105,7 +105,9 @@ Phases, each raising on failure (the script then exits non-zero):
      device memory, and a bf16 checkpoint round trip; the reduced configs
      trained on the card and on the CPU from the same parameters and
      batches (losses and step-1 gradients within 1e-4), then the
-     reference test's 60-step run on the card (its loss criterion); and
+     reference test's 60-step run on the card (its loss criterion)
+     through ``make_train_step`` and ``init_sharded``, the sharded step
+     (DTensor parameters and moments) on a (1, 1) NCCL mesh; and
      ``python -m repro_torch.launch.train`` in a subprocess, its
      checkpoint loaded back bit for bit. Phase 2 holds the SSD's backward
      kernel against float64 autograd at three shapes, the layer's in bf16
@@ -116,12 +118,13 @@ Phases, each raising on failure (the script then exits non-zero):
      (two 5:1 periods: ten layers on 1,024-slot rings, two global; the
      depth is the only cut), 4 prompts of 1,100 tokens then 32 greedy
      steps, decode logits within 1e-3 of the full forward and greedy
-     tokens equal; 12b gemma3-12b's kNN-LM serving at full width (48
-     layers, bf16 synthetic weights, 40 ring layers and 8 global ones) as
+     tokens equal; 12b gemma3-12b's kNN-LM serving at full width and
+     24 of its 48 layers (bf16 synthetic weights, 20 ring layers and 4
+     global ones) as
      phase 5 serves qwen3: a 1,400-key datastore (d = 3,840), 16
      requests of 700 to 1,400 tokens in 8 slots of a 2,048-row cache (a
      ring wraps in prefill, in decode, or never), 64 new tokens each,
-     flash-decode 48 times a step, one overlapped ``StreamEngine`` run
+     flash-decode 24 times a step, one overlapped ``StreamEngine`` run
      of 32 new tokens, and the kNN-LM step; 12c the float32 checks of
      h2o-danube-1.8b (hd = 80, a 4,000-token prompt and 200 steps
      through its 4,096-slot rings) and chatglm3-6b (16 query heads a kv
@@ -161,10 +164,10 @@ Phases, each raising on failure (the script then exits non-zero):
      and musicgen-medium at depth 2 on [B, S + T, F] embeddings (the
      prompt prefilled, the next T embeddings decoded one at a time,
      logits within 1e-3 of the full forward, argmax equal); 14b
-     zamba2-7b's kNN-LM serving at full width in bf16, all 81 layers (a
-     1,024-key datastore at d = 3,584, 16 requests of 128 to 1,024
-     tokens in 8 slots of a 2,048-row cache, 16 new tokens each;
-     flash-decode 13 times a step, the SSD 68 times a full forward and
+     zamba2-7b's kNN-LM serving at full width in bf16, 42 of its 81
+     layers (a 1,024-key datastore at d = 3,584, 16 requests of 128 to
+     1,024 tokens in 8 slots of a 2,048-row cache, 16 new tokens each;
+     flash-decode 7 times a step, the SSD 35 times a full forward and
      never in a decode step); 14c zamba2's train step at full width,
      depth 12, bf16, 4 x 256 (every leaf's gradient non-zero at step 1,
      the shared block's included), and the reduced config at depth 12 on
@@ -178,6 +181,22 @@ Phases, each raising on failure (the script then exits non-zero):
      over 32, hd = 112, bf16 and float32) and musicgen's (24 over 24, hd
      = 64), and the SSD scan and its backward at zamba2's width (H 112, N
      64).
+  15. the mesh steps (under 60 s) on the card's (1, 1) NCCL mesh
+     (``make_local_mesh("cuda")``; one card, so the multi-rank numbers
+     are the CPU's gloo ranks in ``tests/test_torch_mesh_*.py``): 15a
+     phase 11a's mamba2-780m cell (4 x 640, 4 steps) through
+     ``make_train_step`` and ``init_sharded``, held to 11a's plain run
+     from the same parameters and batches (losses within 1e-3 relative,
+     every trained leaf within 1e-2 of its largest |value|, the elements
+     that differ counted; the SSD and its backward under ``local_map``
+     at 11a's counts), its median step beside 11a's; 15b
+     ``make_prefill_step`` and ``make_decode_step`` for qwen3-1.7b and
+     mamba2-780m at full width in bf16, 8 prompts of 256 tokens
+     (``SyntheticLM``, seed 0), caches of 512 rows, 32 greedy steps,
+     against ``prefill_step`` and ``decode_step`` from the same
+     parameters (tokens equal, logits within 1e-2 of the largest;
+     flash-decode once a layer and step, the SSD once a layer in the
+     prefill), the decode steps' medians and busy shares side by side.
 
 The line before the last is a JSON object with one entry per kernel (of
 its phase-2 rows with a library call, the slowest against it; else its
@@ -1623,8 +1642,10 @@ LM_SPECS = {
     # rings and 8 global ones. The float32 check runs 2 of its 5:1
     # periods (num_layers 12, the only cut of the phase: 48 float32
     # layers are 50 GB) over prompts of 1,100 tokens, past the window; the
-    # cell serves all 48 layers in bf16 over one corpus row of 1,401
-    # tokens (1,400 keys: its prefixes must reach the longest prompt),
+    # cell serves 24 of its 48 layers in bf16 (4 of its 8 periods: 20 ring
+    # layers and 4 global; the cut pays for phase 15) over one corpus row
+    # of 1,401 tokens (1,400 keys: its prefixes must reach the longest
+    # prompt),
     # prompts of 700 to 1,400 tokens in a 2,048-row cache, so that some
     # rings wrap in prefill, some in decode and some never (the seed is
     # one that draws all three)
@@ -1633,7 +1654,7 @@ LM_SPECS = {
         cell=dict(corpus_seqs=1, corpus_len=1401, ds_batch=1, requests=16,
                   prompt_lo=700, prompt_hi=1400, prefix_max=1400, slots=8,
                   max_seq=2048, max_new=64, knn_k=8, seed=12,
-                  prefill_len=None),
+                  prefill_len=None, num_layers=24),
         kernels=PYRAMID_KERNELS + ("decode_attention",), absent=("ssd",),
         step_kernel="decode_attention", forward_kernel=None, gate="logits"),
     # phase 13b: phi3.5-moe at full width, bf16, 16 of its 32 layers (the
@@ -1664,14 +1685,16 @@ LM_SPECS = {
     # at depth 2 on [B, S + T, F] embeddings
     HYBRID_ARCH: dict(
         check=dict(batch=4, prompt_len=300, steps=16, num_layers=12),
-        # phase 14b: all 81 layers in bf16 (11.5 GB), over one corpus row
-        # of 1,025 tokens (1,024 keys at d = 3,584) and prompts of 128 to
-        # 1,024 tokens in a 2,048-row cache; 16 new tokens each (a cut from
-        # the other cells' 32 to 64, for the script's time)
+        # phase 14b: 42 of its 81 layers in bf16 (7 of its 13 periods of
+        # five Mamba2 layers and the shared block; the cut pays for phase
+        # 15), over one corpus row of 1,025 tokens (1,024 keys at d =
+        # 3,584) and prompts of 128 to 1,024 tokens in a 2,048-row cache;
+        # 16 new tokens each (a cut from the other cells' 32 to 64, for
+        # the script's time)
         cell=dict(corpus_seqs=1, corpus_len=1025, ds_batch=1, requests=16,
                   prompt_lo=128, prompt_hi=1024, prefix_max=1024, slots=8,
                   max_seq=2048, max_new=16, knn_k=8, seed=14,
-                  prefill_len=None),
+                  prefill_len=None, num_layers=42),
         kernels=PYRAMID_KERNELS + ("decode_attention", "ssd"), absent=(),
         step_kernel="decode_attention", forward_kernel="ssd", gate="layers"),
     "internvl2-2b": dict(
@@ -2417,7 +2440,7 @@ def sliding_path(dev) -> dict:
     """Phase 12: gemma3-12b's float32 check at depth 12 (12a), its kNN-LM
     serving at full width in bf16 (12b, :func:`lm_path`: a datastore of
     d = 3,840 keys, the batcher, one overlapped ``StreamEngine`` run, the
-    kNN-LM step; flash-decode 48 times a decode step), and the float32
+    kNN-LM step; flash-decode 24 times a decode step), and the float32
     checks of h2o-danube-1.8b and chatglm3-6b at depth 2 (12c). The
     plain version of flash-decode must never run on the card; the phase
     raises past PHASE12_LIMIT_S."""
@@ -2787,7 +2810,7 @@ def hybrid_path(dev) -> dict:
     """Phase 14: 14a the float32 checks of zamba2-7b (depth 12, held layer
     by layer along its plan), internvl2-2b and musicgen-medium (depth 2,
     on embeddings); 14b zamba2-7b's kNN-LM serving at full width in bf16,
-    all 81 layers (:func:`lm_path`); 14c its train step at full width,
+    42 of its 81 layers (:func:`lm_path`); 14c its train step at full width,
     depth 12, and the reduced config at depth 12 card against CPU; 14d
     the frontends at full depth in bf16 (:func:`frontend_serve`).
     Flash-decode's plain version must never run on the card; the launch
@@ -4045,7 +4068,8 @@ def _step_grads(params, cfg, b, dev) -> tuple:
 
 
 def train_full_width(dev, arch: str, batch: int, seq: int,
-                     steps: int, num_layers: int = 0) -> dict:
+                     steps: int, num_layers: int = 0,
+                     keep: dict = None) -> dict:
     """11a / 11b: ``train_step`` at full width. Losses and gradient norms
     finite, every leaf's gradient non-zero at step 1 (its first moment
     after the step, (1 - b1) times the clipped gradient), the launches of
@@ -4053,7 +4077,9 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
     forward scan twice a step and its backward once, and nothing else. A
     bf16 slice of mamba2's trained parameters goes through a checkpoint
     and back, bit for bit. ``num_layers`` cuts the depth (phase 13c); an
-    MoE config's aux loss must be finite and positive at every step."""
+    MoE config's aux loss must be finite and positive at every step.
+    With ``keep`` the trained parameters (on the host), the losses and the
+    step times go there, for phase 15a."""
     import dataclasses
     import shutil
     import tempfile
@@ -4120,6 +4146,9 @@ def train_full_width(dev, arch: str, batch: int, seq: int,
             out["bf16_checkpoint_leaves"] = len(TT.leaves(sub))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+    if keep is not None:
+        keep.update(params={k: v.detach().cpu() for k, v in
+                            TT.items(params)}, losses=losses, step_s=times)
     del params, state, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -4367,11 +4396,13 @@ def train_launcher(dev, started: dict) -> dict:
     return out
 
 
-def training_path() -> dict:
+def training_path(kept: dict) -> dict:
     """Phase 11: training on the card. 11a and 11b at full width, 11c the
-    reduced configs against the CPU and the reference test's run, 11d the
-    launcher and checkpoints. The launch counts are set to 0 at its start
-    and read at its end, less the launches of the checks' own runs."""
+    reduced configs against the CPU and the reference test's run (through
+    ``make_train_step`` on the (1, 1) NCCL mesh: the sharded step), 11d
+    the launcher and checkpoints. The launch counts are set to 0 at its
+    start and read at its end, less the launches of the checks' own runs.
+    11a's run of MESH_TRAIN_ARCH is left in ``kept`` for phase 15a."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -4381,7 +4412,9 @@ def training_path() -> dict:
     reset_launch_counts()
     t_phase = time.perf_counter()
     for arch, batch, seq, steps in TRAIN_CELLS:
-        res[arch] = train_full_width(dev, arch, batch, seq, steps)
+        res[arch] = train_full_width(
+            dev, arch, batch, seq, steps,
+            keep=kept if arch == MESH_TRAIN_ARCH else None)
     try:
         mesh = make_local_mesh("cuda")
         res["card_vs_cpu"] = {arch: train_card_vs_cpu(dev, arch, mesh,
@@ -4406,6 +4439,284 @@ def training_path() -> dict:
     if res["phase_s"] > PHASE11_LIMIT_S:
         raise AssertionError(f"phase 11 took {res['phase_s']:.1f} s, over "
                              f"its {PHASE11_LIMIT_S:.0f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the mesh steps
+# ---------------------------------------------------------------------------
+
+PHASE15_LIMIT_S = 60.0
+# 15a: 11a's cell (TRAIN_CELLS) through make_train_step and init_sharded
+# on the card's (1, 1) NCCL mesh, held to 11a's plain run: losses within
+# MESH_LOSS_RTOL of its, every trained leaf within MESH_LEAF_TOL of its
+# largest |value| (bf16 parameters: a step that sums a product in
+# another order can land an element on the next bf16 value)
+MESH_TRAIN_ARCH = "mamba2-780m"
+MESH_LOSS_RTOL = 1e-3
+MESH_LEAF_TOL = 1e-2
+# 15b: make_prefill_step then make_decode_step at full width, bf16, on
+# SyntheticLM prompts (seed 0) against prefill_step and decode_step from
+# the same parameters: greedy tokens equal, logits within MESH_LOGITS_TOL
+# of the plain step's largest |logit|; one decode step of each chain
+# profiled (its device time and busy share) at index MESH_PROFILE_AT
+MESH_SERVE = dict(archs=("qwen3-1.7b", "mamba2-780m"), batch=8,
+                  prompt_len=256, max_seq=512, steps=32, seed=0)
+MESH_LOGITS_TOL = 1e-2
+MESH_PROFILE_AT = 8
+
+
+def mesh_train(dev, mesh, kept: dict) -> dict:
+    """15a: MESH_TRAIN_ARCH's 11a cell through ``make_train_step`` and
+    ``init_sharded`` on ``mesh``: DTensor parameters and moments, the
+    batch split over ``data``, the SSD and its backward under
+    ``local_map``. Its losses and trained parameters are held to 11a's
+    plain run (``kept``), its kernel launches must be 11a's for the same
+    steps, and its median step time stands beside 11a's."""
+    import torch
+    from repro_torch.common.config import BlockKind
+    from repro_torch.common.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import launch_counts
+    from repro_torch.train import tree as TT
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_sharded, make_train_step
+    arch, batch, seq, steps = next(c for c in TRAIN_CELLS
+                                   if c[0] == MESH_TRAIN_ARCH)
+    cfg = get_arch(arch)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=max(steps // 10, 1),
+                      total_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = launch_counts()
+    step_fn, _ = make_train_step(mesh, cfg, opt)
+    params, state = init_sharded(mesh, cfg, seed=0)
+    data = iter(SyntheticLM(cfg, batch=batch, seq_len=seq, seed=0))
+    losses, times = [], []
+    for _ in range(steps):
+        b = next(data)
+        batch_np = {"inputs": b.inputs, "targets": b.targets,
+                    "mask": b.mask}
+        (params, state, m), t = synced(lambda: step_fn(params, state,
+                                                       batch_np))
+        losses.append(float(m["loss"]))
+        times.append(t)
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
+    mamba = sum(k == BlockKind.MAMBA2 for k in cfg.layer_kinds())
+    want = {k: 0 for k in launches}
+    want.update(ssd=2 * mamba * steps, ssd_backward=mamba * steps)
+    shares, differing, elements = {}, 0, 0
+    for key, t in TT.items(params):
+        mine = t.full_tensor().float()
+        ref = kept["params"][key].to(dev).float()
+        diff = (mine - ref).abs()
+        shares[key] = float(diff.max()) / max(float(ref.abs().max()), 1e-30)
+        differing += int((diff > 0).sum())
+        elements += ref.numel()
+    del params, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                       kept["losses"]))
+    mesh_ms = float(np.median(times[1:])) * 1e3
+    plain_ms = float(np.median(kept["step_s"][1:])) * 1e3
+    out = {"arch": arch, "batch": batch, "seq": seq, "steps": steps,
+           "losses": losses, "plain_losses": kept["losses"],
+           "max_loss_rel_diff": loss_rel,
+           "max_leaf_err_share": max(shares.values()),
+           "elements_differing": differing, "elements": elements,
+           "launches": launches, "step_s": times,
+           "step_ms_median": mesh_ms, "plain_step_ms_median": plain_ms}
+    log(f"15a {arch} {batch} x {seq} through make_train_step on the (1, 1) "
+        f"mesh: losses {[round(v, 5) for v in losses]} against 11a's "
+        f"{[round(v, 5) for v in kept['losses']]} (largest relative "
+        f"difference {loss_rel:.3g}); trained leaves within "
+        f"{out['max_leaf_err_share']:.3g} of their largest |value|, "
+        f"{differing} of {elements} elements differ; step {mesh_ms:.1f} ms "
+        f"against the plain step's {plain_ms:.1f} ms (medians after the "
+        f"first); launches { {k: v for k, v in launches.items() if v} }")
+    if loss_rel > MESH_LOSS_RTOL or out["max_leaf_err_share"] > \
+            MESH_LEAF_TOL or launches != want \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"15a: {out} (launches expected {want})")
+    return out
+
+
+def _greedy_chain(step, tok, steps: int, profile_at: int):
+    """``steps`` greedy decode steps of ``step(tok, pos_index)`` (which
+    returns (next tokens [B], step logits [B, V])), each timed on the host
+    clock, the one at ``profile_at`` profiled in their place: (tokens [B,
+    steps], logits [steps, B, V] float32 on the device, times, the
+    profiled step's breakdown, its busy share taken against the median of
+    all the unprofiled steps)."""
+    tokens, logits, times, prof = [], [], [], None
+    for i in range(steps):
+        if i == profile_at:
+            box = {}
+            prof = device_breakdown(lambda: box.update(out=step(tok, i)),
+                                    float(np.median(times)))
+            nxt, lg = box["out"]
+        else:
+            (nxt, lg), t = synced(lambda: step(tok, i))
+            times.append(t)
+        tokens.append(nxt)
+        logits.append(lg)
+        tok = nxt
+    prof["busy_share"] = prof["device_ms"] / 1e3 / float(np.median(times))
+    return tokens, logits, times, prof
+
+
+def mesh_serve(dev, mesh, arch: str, checks: dict) -> dict:
+    """15b: ``make_prefill_step`` and ``make_decode_step`` of ``arch`` at
+    full width in bf16 on ``mesh`` (MESH_SERVE), against
+    ``prefill_step`` and ``decode_step`` from the same parameters (whose
+    launches go to ``checks``): greedy tokens equal, the prefill's last
+    logits and every step's within MESH_LOGITS_TOL of the plain step's
+    largest |logit|, flash-decode once a layer and step, the SSD once a
+    layer in the prefill; median decode step times and the profiled
+    step's busy share side by side."""
+    import torch
+    from repro_torch.common.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.transformer import grow_cache, init_params
+    from repro_torch.serving.decode import (decode_step, make_decode_step,
+                                            make_prefill_step, prefill_step)
+    from repro_torch.train.train_step import shard_tree
+    cell = MESH_SERVE
+    b, plen, max_seq, steps = (cell[k] for k in ("batch", "prompt_len",
+                                                 "max_seq", "steps"))
+    cfg = get_arch(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = next(iter(SyntheticLM(cfg, batch=b, seq_len=plen,
+                                    seed=cell["seed"]))).inputs
+    prompts_t = torch.from_numpy(prompts).to(dev)
+
+    @torch.no_grad()
+    def plain():
+        logits, cache = prefill_step(params, prompts_t, cfg=cfg)
+        last = logits[:, -1].float()
+        del logits
+        box = {"cache": grow_cache(cache, max_seq, window=cfg.sliding_window)}
+
+        def step(tok, i):
+            pos = torch.full((b,), plen + i, dtype=torch.int32, device=dev)
+            nxt, lg, box["cache"] = decode_step(params, box["cache"],
+                                                tok[:, None], pos, cfg=cfg)
+            return nxt, lg
+        return last, _greedy_chain(step, last.argmax(-1).to(torch.int32),
+                                   steps, MESH_PROFILE_AT)
+
+    def mesh_run():
+        prefill, (ps, _) = make_prefill_step(mesh, cfg, batch=b,
+                                             seq_len=plen)
+        decode, _ = make_decode_step(mesh, cfg, batch=b, max_seq=max_seq)
+        mparams = shard_tree(params, ps, dev)
+        before = launch_counts()
+        logits, cache = prefill(mparams, prompts)
+        last = logits[:, -1].full_tensor().float()
+        del logits
+        prefill_launches = {k: n - before[k]
+                            for k, n in launch_counts().items()}
+        box = {"cache": grow_cache(cache, max_seq, window=cfg.sliding_window)}
+
+        def step(tok, i):
+            pos = torch.full((b,), plen + i, dtype=torch.int32, device=dev)
+            nxt, lg, box["cache"] = decode(mparams, box["cache"],
+                                           tok[:, None], pos)
+            return nxt.full_tensor(), lg.full_tensor()
+        before = launch_counts()
+        chain = _greedy_chain(step, last.argmax(-1).to(torch.int32), steps,
+                              MESH_PROFILE_AT)
+        decode_launches = {k: n - before[k]
+                           for k, n in launch_counts().items()}
+        return last, chain, prefill_launches, decode_launches
+
+    t0 = time.perf_counter()
+    p_last, (p_tok, p_lg, p_times, p_prof) = uncounted(checks, plain)
+    t1 = time.perf_counter()
+    m_last, (m_tok, m_lg, m_times, m_prof), pre_l, dec_l = mesh_run()
+    t2 = time.perf_counter()
+    scale = max(float(p_last.abs().max()),
+                max(float(x.abs().max()) for x in p_lg))
+    err = max([float((m_last - p_last).abs().max())]
+              + [float((u - v).abs().max()) for u, v in zip(m_lg, p_lg)])
+    tokens_equal = all(torch.equal(u, v) for u, v in zip(m_tok, p_tok))
+    out = {"arch": arch, "batch": b, "prompt_len": plen, "max_seq": max_seq,
+           "steps": steps, "tokens_equal": tokens_equal,
+           "max_logit_err_share": err / scale,
+           "prefill_launches": pre_l, "decode_launches": dec_l,
+           "decode_ms_median": float(np.median(m_times)) * 1e3,
+           "plain_decode_ms_median": float(np.median(p_times)) * 1e3,
+           "busy_share": m_prof["busy_share"],
+           "plain_busy_share": p_prof["busy_share"],
+           "profiled": m_prof, "plain_profiled": p_prof,
+           "plain_s": t1 - t0, "mesh_s": t2 - t1}
+    out["launches"] = {k: pre_l[k] + dec_l[k] for k in pre_l}
+    want_decode = kernel_layers(cfg, "decode_attention") * steps
+    want_ssd = kernel_layers(cfg, "ssd")
+    del params, p_lg, m_lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"15b {arch} through make_prefill_step / make_decode_step on the "
+        f"(1, 1) mesh, {b} x {plen} then {steps} greedy steps: tokens equal "
+        f"{tokens_equal}, logits within {out['max_logit_err_share']:.3g} of "
+        f"the largest; decode step {out['decode_ms_median']:.2f} ms "
+        f"(busy {out['busy_share']:.3f}) against the plain step's "
+        f"{out['plain_decode_ms_median']:.2f} ms (busy "
+        f"{out['plain_busy_share']:.3f}); launches: prefill "
+        f"{ {k: v for k, v in pre_l.items() if v} }, decode "
+        f"{ {k: v for k, v in dec_l.items() if v} }; plain {t1 - t0:.1f} s, "
+        f"mesh {t2 - t1:.1f} s")
+    if not tokens_equal or out["max_logit_err_share"] > MESH_LOGITS_TOL \
+            or dec_l["decode_attention"] != want_decode \
+            or dec_l["ssd"] != 0 or pre_l["ssd"] != want_ssd \
+            or pre_l["decode_attention"] != 0:
+        raise AssertionError(f"15b {arch}: {out} (flash-decode expected "
+                             f"{want_decode} in decode, the SSD {want_ssd} "
+                             f"in the prefill)")
+    return out
+
+
+def mesh_path(dev, kept: dict) -> dict:
+    """Phase 15: the mesh steps on the card's (1, 1) NCCL mesh
+    (``make_local_mesh("cuda")``; the multi-rank numbers are the CPU's
+    gloo ranks, ``tests/test_torch_mesh_*.py``): 15a training, 15b
+    serving. The launch counts are set to 0 at its start and read at its
+    end, less the plain runs' own; flash-decode's plain version must never
+    run on the card; the phase raises past PHASE15_LIMIT_S."""
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    res, checks = {}, {}
+    calls, restore = counting_plain_decode()
+    try:
+        mesh = make_local_mesh("cuda")
+        res["train"] = mesh_train(dev, mesh, kept)
+        res["serve"] = {arch: mesh_serve(dev, mesh, arch, checks)
+                        for arch in MESH_SERVE["archs"]}
+    finally:
+        restore()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    res["plain_decode_calls"] = dict(calls)
+    if calls.get("cuda", 0):
+        raise AssertionError(f"phase 15: flash-decode's plain version ran "
+                             f"on the card {calls['cuda']} times")
+    res["launches"] = {name: n - checks.get(name, 0)
+                       for name, n in launch_counts().items()}
+    res["check_launches"] = checks
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: launches {res['launches']} (the plain runs' "
+        f"{checks} not counted); {res['phase_s']:.1f} s")
+    if res["phase_s"] > PHASE15_LIMIT_S:
+        raise AssertionError(f"phase 15 took {res['phase_s']:.1f} s, over "
+                             f"its {PHASE15_LIMIT_S:.0f} s")
     return res
 
 
@@ -4482,10 +4793,13 @@ def main() -> int:
         state, result["main_path"]["float32"]["recall@10"])
     result["store"], result["maintenance"] = store_path(state)
     result["multi_device"] = multi_device_path(state)
-    result["training"] = training_path()
+    kept = {}
+    result["training"] = training_path(kept)
     result["lm_sliding"] = sliding_path(dev)
     result["lm_moe"] = moe_path(dev)
     result["lm_hybrid"] = hybrid_path(dev)
+    result["mesh_steps"] = mesh_path(dev, kept)
+    del kept
     result["wall_s"] = time.perf_counter() - t_start
     log(f"wall {result['wall_s']:.1f} s")
 
@@ -4499,7 +4813,7 @@ def main() -> int:
                             ("main_path", "lm_path", "ssm_path",
                              "serving", "store", "maintenance",
                              "multi_device", "training", "lm_sliding",
-                             "lm_moe", "lm_hybrid")),
+                             "lm_moe", "lm_hybrid", "mesh_steps")),
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

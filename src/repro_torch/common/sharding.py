@@ -14,11 +14,15 @@ the DTensor ``placements`` it means on the mesh (one ``Shard(dim)`` or
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard, \
+    distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.launch.mesh import axis_size
 
@@ -36,7 +40,10 @@ class MeshSharding:
     def placements(self) -> Tuple:
         """One placement per mesh dim: ``Shard(i)`` where tensor dim i is
         split over that mesh axis (in the spec's major-to-minor order when
-        a dim spans several axes), else ``Replicate()``."""
+        a dim spans several axes), else ``Replicate()``. A split over an
+        axis of one rank is that rank's whole tensor and is given as
+        ``Replicate()``: the placements of one rank's tensors then agree,
+        and DTensor redistributes nothing between them."""
         dim_of = {}
         for i, entry in enumerate(self.spec):
             for ax in _axes(entry):
@@ -46,7 +53,8 @@ class MeshSharding:
                 if ax in dim_of:
                     raise ValueError(f"mesh axis {ax!r} shards two dims")
                 dim_of[ax] = i
-        return tuple(Shard(dim_of[ax]) if ax in dim_of else Replicate()
+        return tuple(Shard(dim_of[ax]) if ax in dim_of
+                     and axis_size(self.mesh, ax) > 1 else Replicate()
                      for ax in self.mesh.mesh_dim_names)
 
 
@@ -152,3 +160,52 @@ def logical_to_sharding_shaped(mesh: DeviceMesh,
 
 def count_devices(mesh: DeviceMesh) -> int:
     return mesh.size()
+
+
+def batch_split(mesh: DeviceMesh, batch: int):
+    """The spec entry of a batch dim of ``batch`` rows: the batch axes
+    where they divide it, else None (also on a mesh without them, such as
+    a model axis's own)."""
+    bax = batch_axes(mesh)
+    if not set(bax) <= set(mesh.mesh_dim_names):
+        return None
+    n = 1
+    for ax in bax:
+        n *= axis_size(mesh, ax)
+    if batch % n:
+        return None
+    return bax if len(bax) > 1 else bax[0]
+
+
+def shard_local(t: torch.Tensor, mesh: DeviceMesh,
+                placements: Sequence) -> DTensor:
+    """``t``, a whole tensor that every rank holds alike, as a DTensor of
+    ``placements`` on ``mesh``: each rank keeps a copy of its own chunk
+    (DTensor's split, uneven where a dim does not divide) and sends
+    nothing."""
+    local = distribute_tensor(t, mesh, placements,
+                              src_data_rank=None).to_local()
+    if local.numel() < t.numel() and local.untyped_storage().data_ptr() \
+            == t.untyped_storage().data_ptr():
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, placements, shape=t.shape,
+                              stride=t.stride())
+
+
+# how deep this process is in plain_tensors_replicated (DTensor's own
+# flag is process-wide too)
+_replicated_depth = [0]
+
+
+@contextlib.contextmanager
+def plain_tensors_replicated():
+    """DTensor's ``implicit_replication`` (a plain tensor in an op with
+    DTensors counts as replicated), safe to nest: the outermost entry
+    turns it on and its exit off."""
+    outer = _replicated_depth[0] == 0
+    with implicit_replication() if outer else contextlib.nullcontext():
+        _replicated_depth[0] += 1
+        try:
+            yield
+        finally:
+            _replicated_depth[0] -= 1

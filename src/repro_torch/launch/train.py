@@ -7,22 +7,36 @@
 Synthetic parameters (a generator seeded 0 on the device) trained on
 ``SyntheticLM`` batches with AdamW (``--lr``, warmup a tenth of
 ``--steps``, cosine decay to the last step). It runs on the CUDA device
-unless ``--device cpu`` is given, on a (1, 1) mesh from
-``make_local_mesh``; ``--production-mesh`` asks for the 16x16 mesh, which
-needs 256 ranks (and training across ranks is not ported yet). With
-``--ckpt`` the parameters and optimizer state are saved there at the end,
-and the log gives their ``tree_digest`` (a reader can check a load
-against it bit for bit).
+unless ``--device cpu`` is given (gloo), one rank per process, on a
+(1, world) mesh from ``make_local_mesh``, or on the 16x16 mesh with
+``--production-mesh`` (256 ranks). Alone it is world size 1; started as
+several ranks (``torchrun``, or ``RANK`` and ``WORLD_SIZE`` in the
+environment with ``--dist-init`` giving the rendezvous, e.g.
+``file:///shared/path``) it joins their process group:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --reduced \
+        --device cpu --steps 5
+
+With ``--ckpt`` the parameters and optimizer state are saved there at
+the end (one checkpoint, written by rank 0), and the log gives their
+``tree_digest`` (a reader can check a load against it bit for bit). The
+log's last line lists every step's loss.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 from typing import List, Optional, Sequence
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.common.registry import get_arch, list_archs
 from repro_torch.data.synthetic import SyntheticLM
-from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import (BACKENDS, make_local_mesh,
+                                     make_production_mesh)
 from repro_torch.obs import get_logger
 from repro_torch.train.checkpoint import save_checkpoint, tree_digest
 from repro_torch.train.optimizer import AdamWConfig
@@ -46,7 +60,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
                     help="use the 16x16 mesh (requires 256 ranks)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
+    ap.add_argument("--dist-init", default="env://",
+                    help="the process group's init method when WORLD_SIZE "
+                         "is set (default env://, as torchrun sets it)")
     args = ap.parse_args(argv)
+    _join_ranks(args.device, args.dist_init)
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -59,6 +77,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     params, opt_state = init_sharded(mesh, cfg)
     data = iter(SyntheticLM(cfg, batch=args.batch, seq_len=args.seq))
 
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     losses = []
     t0 = time.time()
     for i in range(args.steps):
@@ -66,17 +85,40 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
         batch = {"inputs": b.inputs, "targets": b.targets, "mask": b.mask}
         params, opt_state, m = step_fn(params, opt_state, batch)
         losses.append(float(m["loss"]))
-        if i % 10 == 0 or i == args.steps - 1:
+        if lead and (i % 10 == 0 or i == args.steps - 1):
             log.info(f"[train:{cfg.name}] step {i:4d} "
                      f"loss={losses[-1]:.4f} lr={float(m['lr']):.2e} "
                      f"({(time.time() - t0) / (i + 1):.2f}s/step)")
     if args.ckpt:
         save_checkpoint(args.ckpt, params, opt_state, step=args.steps,
                         meta={"arch": cfg.name})
-        log.info(f"saved checkpoint to {args.ckpt} (params digest "
-                 f"{tree_digest(params)}, mu {tree_digest(opt_state.mu)}, "
-                 f"nu {tree_digest(opt_state.nu)})")
+        digests = [tree_digest(t) for t in (params, opt_state.mu,
+                                            opt_state.nu)]
+        if lead:
+            log.info(f"saved checkpoint to {args.ckpt} (params digest "
+                     f"{digests[0]}, mu {digests[1]}, nu {digests[2]})")
+    if lead:
+        log.info(f"[train:{cfg.name}] losses {json.dumps(losses)}")
     return losses
+
+
+def _join_ranks(device: str, init_method: str) -> None:
+    """Join the process group of a multi-rank start (``WORLD_SIZE`` in the
+    environment, as ``torchrun`` sets it): the device's backend, this
+    process's ``RANK``, its CUDA device ``LOCAL_RANK``. Alone, the mesh
+    starts a group of one."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 or dist.is_initialized():
+        return
+    backend = BACKENDS["cuda" if device.startswith("cuda") else "cpu"]
+    kw = {}
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        kw["device_id"] = torch.device("cuda", local)
+    dist.init_process_group(backend, init_method=init_method,
+                            rank=int(os.environ["RANK"]), world_size=world,
+                            **kw)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -29,6 +30,27 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
            w_out: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: (silu(x W_g) * (x W_i)) W_o."""
     return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+
+
+def split_heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t [..., n * k] as [..., n, k]. A DTensor whose last dim is split
+    over a mesh dim that does not divide n (a split that would cut a
+    head, as musicgen's 24 heads over 16 ranks) is gathered on that dim
+    first: the view cannot cut a head."""
+    if isinstance(t, DTensor):
+        last, mesh = t.ndim - 1, t.device_mesh
+        placements = tuple(
+            Replicate() if isinstance(p, Shard) and p.dim == last
+            and n % mesh.size(i) else p for i, p in enumerate(t.placements))
+        if placements != t.placements:
+            t = t.redistribute(mesh, placements)
+    return t.reshape(*t.shape[:-1], n, t.shape[-1] // n)
+
+
+def keep(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The ``place`` of the ``init_*`` functions that keeps each leaf
+    whole."""
+    return t
 
 
 def dense_init(shape: Sequence[int], in_axis_size: int, dtype: torch.dtype,

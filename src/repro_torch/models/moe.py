@@ -21,6 +21,11 @@ including the reference's behaviours:
 - an assignment at or past the capacity is dropped and adds nothing;
 - the gates are cast to the model's dtype before the combine;
 - the load-balancing aux loss counts every assignment, kept or dropped.
+
+On a mesh (DTensor inputs) the block runs on every rank over the whole
+batch's tokens and the gathered experts (``local_map`` with every input
+replicated): the groups span the data ranks, so a rank-local dispatch
+would change capacities and drops, and this keeps the un-sharded step's.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.common.config import ArchConfig
 from repro_torch.models import layers as L
@@ -37,13 +44,15 @@ MAX_GROUP = 4096  # tokens per dispatch group
 
 def init_moe_params(cfg: ArchConfig, dtype: torch.dtype,
                     generator: torch.Generator, device: torch.device,
-                    *, layers: Optional[int] = None) -> dict:
+                    *, layers: Optional[int] = None,
+                    place=L.keep) -> dict:
     """The router (float32 [d, E]) and the experts' SwiGLU weights
     (``e_gate``, ``e_in`` [E, d, f] and ``e_out`` [E, f, d] in ``dtype``),
     ``normal / sqrt(fan_in)``; with ``layers`` each is stacked on a
     leading axis of that many layers, drawn a layer at a time (a stack of
     experts is drawn in float32 first: 16 of phi3.5-moe's layers would
-    need 27 GB for it at once)."""
+    need 27 GB for it at once). Each leaf goes through ``place(name,
+    leaf)`` as soon as it is drawn."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
 
     def dense(shape, fan_in, dt):
@@ -55,10 +64,11 @@ def init_moe_params(cfg: ArchConfig, dtype: torch.dtype,
             out[i] = L.dense_init(shape, fan_in, dt, generator, device)
         return out
 
-    return {"router": dense((d, e), d, torch.float32),
-            "e_gate": dense((e, d, f), d, dtype),
-            "e_in": dense((e, d, f), d, dtype),
-            "e_out": dense((e, f, d), f, dtype)}
+    make = {"router": lambda: dense((d, e), d, torch.float32),
+            "e_gate": lambda: dense((e, d, f), d, dtype),
+            "e_in": lambda: dense((e, d, f), d, dtype),
+            "e_out": lambda: dense((e, f, d), f, dtype)}
+    return {name: place(name, fn()) for name, fn in make.items()}
 
 
 def group_and_capacity(cfg: ArchConfig, tokens: int) -> Tuple[int, int]:
@@ -93,9 +103,26 @@ def route(p: dict, cfg: ArchConfig, xt: torch.Tensor):
     return gates, top_e, slots, slots < cap, top_g
 
 
+MOE_KEYS = ("router", "e_gate", "e_in", "e_out")
+
+
 def moe_block(p: dict, cfg: ArchConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> (out [B, S, D] in x's dtype, aux float32 scalar)."""
+    """x [B, S, D] -> (out [B, S, D] in x's dtype, aux float32 scalar).
+    DTensor inputs run the block replicated on every rank (the module's
+    docstring); out and aux come back replicated."""
+    if isinstance(x, DTensor):
+        rep = (Replicate(),) * x.device_mesh.ndim
+        fn = local_map(
+            lambda xl, *ws: _moe_local(dict(zip(MOE_KEYS, ws)), cfg, xl),
+            out_placements=(rep, rep), in_placements=(rep,) * 5,
+            device_mesh=x.device_mesh, redistribute_inputs=True)
+        return fn(x, *(p[k] for k in MOE_KEYS))
+    return _moe_local(p, cfg, x)
+
+
+def _moe_local(p: dict, cfg: ArchConfig, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     moe = cfg.moe
     b, s, d = x.shape
     e, k = moe.num_experts, moe.experts_per_token

@@ -9,9 +9,10 @@ the scan through the kernel's dispatch (``kernels/ssd/ops.py``), which
 launches the CUDA kernel for tensors on the card. Decode is the O(1)
 recurrent state update, in plain PyTorch.
 
-B and C are ngroups=1 (shared across heads). The mesh sharding of the
-reference (heads over the ``model`` axis) waits for the
-``torch.distributed`` port.
+B and C are ngroups=1 (shared across heads). On a mesh (DTensor
+inputs) the scan runs under ``local_map`` on each rank's batch rows and
+heads (:func:`_mesh_ssd_scan`), and decode's state copies land in each
+rank's own shard of the cache.
 """
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.common import sharding as S
 from repro_torch.common.config import ArchConfig, SSMConfig
 from repro_torch.kernels.ssd.ops import ssd_scan
 from repro_torch.models import layers as L
@@ -34,12 +38,14 @@ def ssm_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
 
 def init_mamba2_params(cfg: ArchConfig, dtype: torch.dtype,
                        generator: torch.Generator, device: torch.device,
-                       *, layers: Optional[int] = None) -> dict:
+                       *, layers: Optional[int] = None,
+                       place=L.keep) -> dict:
     """The reference's Mamba2 parameters: dense weights ``normal /
     sqrt(fan_in)``, ``dt_bias`` zero, ``a_log = log(linspace(1, 16, H))``
     and ``d_skip`` one (these three float32 in any model dtype), conv
     bias and norm scale zero. With ``layers`` each is stacked on a
-    leading axis of that many layers."""
+    leading axis of that many layers. Each leaf goes through
+    ``place(name, leaf)`` as soon as it is made."""
     s = cfg.ssm or SSMConfig()
     d = cfg.d_model
     d_in, h, n = ssm_dims(cfg)
@@ -52,31 +58,67 @@ def init_mamba2_params(cfg: ArchConfig, dtype: torch.dtype,
         return v.expand(lead + tuple(v.shape)).clone()
 
     f32 = dict(dtype=torch.float32, device=device)
-    return {
-        "in_proj": dense((d, 2 * d_in), d),          # z, x
-        "bc_proj": dense((d, 2 * n), d),             # B, C
-        "dt_w": dense((d, h), d),
-        "dt_bias": per_layer(torch.zeros(h, **f32)),
-        "a_log": per_layer(torch.log(torch.linspace(1.0, 16.0, h, **f32))),
-        "d_skip": per_layer(torch.ones(h, **f32)),
-        "conv_w": dense((s.conv_width, d_in), s.conv_width),
-        "conv_b": torch.zeros(lead + (d_in,), dtype=dtype, device=device),
-        "ssm_norm": torch.zeros(lead + (d_in,), dtype=dtype, device=device),
-        "out_proj": dense((d_in, d), d_in),
+    make = {    # in the order of the draws
+        "in_proj": lambda: dense((d, 2 * d_in), d),          # z, x
+        "bc_proj": lambda: dense((d, 2 * n), d),             # B, C
+        "dt_w": lambda: dense((d, h), d),
+        "dt_bias": lambda: per_layer(torch.zeros(h, **f32)),
+        "a_log": lambda: per_layer(torch.log(
+            torch.linspace(1.0, 16.0, h, **f32))),
+        "d_skip": lambda: per_layer(torch.ones(h, **f32)),
+        "conv_w": lambda: dense((s.conv_width, d_in), s.conv_width),
+        "conv_b": lambda: torch.zeros(lead + (d_in,), dtype=dtype,
+                                      device=device),
+        "ssm_norm": lambda: torch.zeros(lead + (d_in,), dtype=dtype,
+                                        device=device),
+        "out_proj": lambda: dense((d_in, d), d_in),
     }
+    return {name: place(name, fn()) for name, fn in make.items()}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv. x: [B, S, C]; w: [W, C]. The sum of W
     shifted products, in the reference's order (no ``F.conv1d``: a
-    float32 convolution on the card would go through cuDNN in TF32)."""
+    float32 convolution on the card would go through cuDNN in TF32).
+    DTensor inputs run it on each rank's local tensors
+    (:func:`_mesh_causal_conv`)."""
+    if isinstance(x, DTensor):
+        return _mesh_causal_conv(x, w, b)
     width, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, width - 1, 0))
     out = xp[:, 0:s] * w[0]
     for i in range(1, width):
         out = out + xp[:, i:i + s] * w[i]
     return out + b
+
+
+def _mesh_causal_conv(x: DTensor, w, b) -> DTensor:
+    """The causal conv under ``local_map``: each rank's batch rows (over
+    the batch axes) and channels (over ``model``), where those divide; a
+    channel's conv reads only its own channel, so the shard's is exact. A
+    rank's gradients of w and b sum its batch rows only, partial sums
+    over the batch axes."""
+    mesh = x.device_mesh
+    bs = S.batch_split(mesh, x.shape[0])
+    cs = S.MODEL_AXIS if x.shape[2] % mesh.size(
+        mesh.mesh_dim_names.index(S.MODEL_AXIS)) == 0 else None
+
+    def pl(*spec):
+        return S.ns(mesh, *spec).placements
+
+    def over_batch(placements):
+        return tuple(Partial() if bs is not None and name in S.batch_axes(
+            mesh) else p for name, p in zip(mesh.mesh_dim_names, placements))
+
+    x_pl, w_pl, b_pl = pl(bs, None, cs), pl(None, cs), pl(cs)
+    fn = local_map(
+        lambda xl, wl, bl: _causal_conv(*(_ContiguousGrad.apply(t)
+                                          for t in (xl, wl, bl))),
+        out_placements=list(x_pl), in_placements=(x_pl, w_pl, b_pl),
+        in_grad_placements=(x_pl, over_batch(w_pl), over_batch(b_pl)),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, w, b)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -185,7 +227,6 @@ def mamba2_block(p: dict, cfg: ArchConfig, u: torch.Tensor,
     s_cfg = cfg.ssm or SSMConfig()
     bsz, s, d = u.shape
     d_in, h, n = ssm_dims(cfg)
-    phead = s_cfg.head_dim
     width = s_cfg.conv_width
 
     z, x = torch.split(u @ p["in_proj"], d_in, dim=-1)
@@ -197,8 +238,7 @@ def mamba2_block(p: dict, cfg: ArchConfig, u: torch.Tensor,
         # causal conv via the rolling state [B, W-1, d_in]
         window = torch.cat([conv_state, x], dim=1)        # [B, W, d_in]
         xconv = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
-        xconv = F.silu(xconv)[:, None]                    # [B, 1, d_in]
-        xh = xconv.reshape(bsz, h, phead)
+        xh = L.split_heads(F.silu(xconv), h)              # [B, H, P]
         dt1 = dt[:, 0]                                    # [B, H]
         g = torch.exp(dt1 * a[None, :])                   # [B, H]
         outer = torch.einsum("bh,bn,bhp->bhnp", dt1, b_mat[:, 0].float(),
@@ -214,10 +254,11 @@ def mamba2_block(p: dict, cfg: ArchConfig, u: torch.Tensor,
     else:
         xconv = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
         new_conv_state = x[:, -(width - 1):]              # raw pre-conv tail
-        xh = xconv.reshape(bsz, s, h, phead)
-        y, final_state = ssd_scan(xh, dt, a, b_mat, c_mat,
-                                  chunk=s_cfg.chunk_size,
-                                  initial_state=ssm_state)
+        xh = L.split_heads(xconv, h)
+        scan = _mesh_ssd_scan if isinstance(xh, DTensor) else ssd_scan
+        y, final_state = scan(xh, dt, a, b_mat, c_mat,
+                              chunk=s_cfg.chunk_size,
+                              initial_state=ssm_state)
         y = y.to(x.dtype)
         y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
         y = y.reshape(bsz, s, d_in)
@@ -226,6 +267,68 @@ def mamba2_block(p: dict, cfg: ArchConfig, u: torch.Tensor,
     # gated RMSNorm then output projection (Mamba2)
     y = L.rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
     return y @ p["out_proj"], states
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    local gradient that leaves ``local_map`` becomes a DTensor's local
+    shard, and DTensor's views of it (the backward of the projections)
+    need the contiguous layout that the plain scan's transposes do not
+    give."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _mesh_ssd_scan(x: DTensor, dt, a, b_mat, c_mat, *, chunk: int,
+                   initial_state=None):
+    """``ssd_scan`` on DTensors, the kernel on each rank's local tensors
+    (``local_map``): x [B, S, H, P] and dt [B, S, H] split on batch over
+    the batch axes and on heads over ``model`` (each where it divides), a
+    [H] on heads, B and C [B, S, N] on batch (ngroups = 1: every head
+    reads them). The scan is exact on such a shard. Its gradient follows
+    through ``local_map`` (on the card ``SSDScan``'s backward kernel): a
+    rank's dB and dC sum its heads only, and its da its batch rows only,
+    so those come back as partial sums over ``model`` and over the batch
+    axes."""
+    mesh = x.device_mesh
+    b, _, h, _ = x.shape
+    bs = S.batch_split(mesh, b)
+    hs = S.MODEL_AXIS if h % mesh.size(
+        mesh.mesh_dim_names.index(S.MODEL_AXIS)) == 0 else None
+
+    def pl(*spec):
+        return S.ns(mesh, *spec).placements
+
+    def partial_over(placements, axes):
+        return tuple(Partial() if name in axes else p for name, p in
+                     zip(mesh.mesh_dim_names, placements))
+
+    batch_axes = S.batch_axes(mesh) if bs is not None else ()
+    ins = [pl(bs, None, hs, None), pl(bs, None, hs), pl(hs),
+           pl(bs, None, None), pl(bs, None, None)]
+    grads = [ins[0], ins[1], partial_over(ins[2], batch_axes),
+             partial_over(ins[3], (hs,)), partial_over(ins[4], (hs,))]
+    args = [x, dt, a, b_mat, c_mat]
+    if initial_state is not None:
+        ins.append(pl(bs, hs, None, None))
+        grads.append(ins[-1])
+        args.append(initial_state)
+
+    def scan(*local):
+        return ssd_scan(*(_ContiguousGrad.apply(t) for t in local[:5]),
+                        chunk=chunk, initial_state=local[5] if len(local) > 5
+                        else None)
+
+    fn = local_map(scan, out_placements=(ins[0], pl(bs, hs, None, None)),
+                   in_placements=tuple(ins), in_grad_placements=tuple(grads),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*args)
 
 
 def init_ssm_state(cfg: ArchConfig, batch: int, *,

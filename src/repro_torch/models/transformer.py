@@ -18,8 +18,15 @@ cache slot of its own, its gradient the sum over its invocations. A
 config with a ``frontend`` (the vision and audio stubs) takes
 precomputed embeddings [B, S, F] in place of tokens, projected by
 ``frontend_proj``. Remat is per-layer (or per-segment)
-``torch.utils.checkpoint``; mesh sharding of the activations is not
-ported (the train step runs at world size 1).
+``torch.utils.checkpoint``.
+
+On a mesh the parameters, caches and inputs are DTensors: DTensor's
+sharding propagation places each product and inserts the collectives,
+and ``forward(..., mesh=)`` holds the residual stream at [batch over the
+batch axes, seq, d replicated] where the reference constrains it. The
+kernels see only local tensors: their call sites (``models/attention``,
+``models/ssm``) go through ``local_map``, and the MoE block runs on
+gathered tokens and experts (``models/moe``).
 """
 from __future__ import annotations
 
@@ -28,8 +35,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common import sharding as S
 from repro_torch.common.config import ArchConfig, BlockKind
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -112,7 +122,7 @@ def _layer_params(blocks: dict, seg: Segment, j: int) -> dict:
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-                *, device: DeviceLike = "cuda") -> dict:
+                *, device: DeviceLike = "cuda", place=L.keep) -> dict:
     """Synthetic parameters of ``cfg`` on ``device``: dense weights are
     ``normal / sqrt(fan_in)`` drawn from ``generator`` (on its own device;
     a generator seeded 0 on ``device`` when none is given), norm scales
@@ -123,7 +133,9 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     ``blocks/shared_attention``; an MoE config's attention layers hold
     ``router`` (float32), ``e_gate``, ``e_in`` and ``e_out`` in place of
     the dense MLP's weights; a frontend config has ``frontend_proj`` [F,
-    d], drawn with fan-in F."""
+    d], drawn with fan-in F. Each leaf goes through ``place(path, leaf)``
+    (its ``/``-joined path) as soon as it is drawn, so that a caller that
+    keeps a shard of each holds one whole leaf at a time."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -134,44 +146,55 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     n_mamba = sum(k == BlockKind.MAMBA2 for k in kinds)
     shared = BlockKind.SHARED_ATTENTION in kinds
 
-    def dense(shape, fan_in):
-        return L.dense_init(shape, fan_in, dtype, generator, dev)
+    def dense(path, shape, fan_in):
+        return place(path, L.dense_init(shape, fan_in, dtype, generator,
+                                        dev))
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(path, *shape):
+        return place(path, torch.zeros(shape, dtype=dtype, device=dev))
 
-    def attn_layers(layers: Optional[int]) -> dict:
+    def under(prefix):
+        return lambda name, t: place(prefix + name, t)
+
+    def attn_layers(layers: Optional[int], prefix: str) -> dict:
         """Attention + MLP weights, stacked on ``layers`` (or one block)."""
         lead = () if layers is None else (layers,)
-        blocks = {"norm_attn": zeros(*lead, d), "norm_mlp": zeros(*lead, d)}
+        blocks = {name: zeros(prefix + name, *lead, d)
+                  for name in ("norm_attn", "norm_mlp")}
         blocks.update(init_attention_params(cfg, dtype, generator, dev,
-                                            layers=layers))
+                                            layers=layers,
+                                            place=under(prefix)))
         if cfg.moe is not None:
             blocks.update(init_moe_params(cfg, dtype, generator, dev,
-                                          layers=layers))
+                                          layers=layers,
+                                          place=under(prefix)))
         else:
-            blocks["w_gate"] = dense(lead + (d, f), d)
-            blocks["w_in"] = dense(lead + (d, f), d)
-            blocks["w_out"] = dense(lead + (f, d), f)
+            blocks["w_gate"] = dense(prefix + "w_gate", lead + (d, f), d)
+            blocks["w_in"] = dense(prefix + "w_in", lead + (d, f), d)
+            blocks["w_out"] = dense(prefix + "w_out", lead + (f, d), f)
         return blocks
 
     params: dict = {"blocks": {}}
     if cfg.frontend:
-        params["frontend_proj"] = dense((cfg.frontend_dim, d),
+        params["frontend_proj"] = dense("frontend_proj",
+                                        (cfg.frontend_dim, d),
                                         cfg.frontend_dim)
-    params["embedding"] = dense((cfg.vocab_size, d), d)
-    params["final_norm"] = zeros(d)
+    params["embedding"] = dense("embedding", (cfg.vocab_size, d), d)
+    params["final_norm"] = zeros("final_norm", d)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, cfg.vocab_size), d)
+        params["lm_head"] = dense("lm_head", (d, cfg.vocab_size), d)
     if n_attn:
-        params["blocks"]["attention"] = attn_layers(n_attn)
+        params["blocks"]["attention"] = attn_layers(n_attn,
+                                                    "blocks/attention/")
     if n_mamba:
-        blocks = {"norm_in": zeros(n_mamba, d)}
+        blocks = {"norm_in": zeros("blocks/mamba2/norm_in", n_mamba, d)}
         blocks.update(init_mamba2_params(cfg, dtype, generator, dev,
-                                         layers=n_mamba))
+                                         layers=n_mamba,
+                                         place=under("blocks/mamba2/")))
         params["blocks"]["mamba2"] = blocks
     if shared:
-        params["blocks"]["shared_attention"] = attn_layers(None)
+        params["blocks"]["shared_attention"] = attn_layers(
+            None, "blocks/shared_attention/")
     return params
 
 
@@ -226,10 +249,26 @@ def grow_cache(cache: dict, max_seq: int, window: int = 0) -> dict:
         target = max_seq
         if g.endswith("@swa"):
             target = min(window, max_seq) if window else sub["k"].shape[2]
-        out[g] = {name: a if a.shape[2] >= target else
-                  F.pad(a, (0, 0, 0, 0, 0, target - a.shape[2]))
+        out[g] = {name: a if a.shape[2] >= target else _pad_seq(a, target)
                   for name, a in sub.items()}
     return out
+
+
+def _pad_seq(a: torch.Tensor, target: int) -> torch.Tensor:
+    """A cache [slots, B, S, KV, hd] padded with zero rows to ``target``
+    positions. A DTensor cache is padded on its local tensor, its sequence
+    gathered first where split (the decode step splits it again), so that
+    no DTensor pad rule is needed."""
+    pad = (0, 0, 0, 0, 0, target - a.shape[2])
+    if not isinstance(a, DTensor):
+        return F.pad(a, pad)
+    placements = tuple(Replicate() if p == Shard(2) else p
+                       for p in a.placements)
+    local = F.pad(a.redistribute(a.device_mesh, placements).to_local(), pad)
+    shape = a.shape[:2] + (target,) + a.shape[3:]
+    return DTensor.from_local(local, a.device_mesh, placements, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 # ---------------------------------------------------------------------------
@@ -282,9 +321,88 @@ def _requires_grad(tree: dict) -> bool:
                for v in tree.values())
 
 
+def _residual_constraint(mesh: Optional[DeviceMesh], x: torch.Tensor):
+    """The reference's constraint on the residual stream: [batch over the
+    batch axes, seq, d replicated] (a frontend's [B, S, F] embeddings
+    alike). Without it the propagation may keep d split after a
+    row-parallel product and gather activations where FSDP gathers
+    weights. Without ``mesh`` a DTensor stream (on the model axis's mesh,
+    :func:`_forward_on_model_axis`) is held replicated at the same points;
+    plain tensors pass as they are."""
+    if mesh is None and not isinstance(x, DTensor):
+        return lambda t: t
+    if mesh is None:
+        mesh, placements = x.device_mesh, (Replicate(),) * x.device_mesh.ndim
+    else:
+        placements = S.data_sharding(mesh, 3).placements
+    return lambda t: t.redistribute(mesh, placements)
+
+
+def _onto_model_axis(t):
+    """A DTensor of a mesh as a DTensor of its model axis's 1-D mesh (the
+    same values, each rank the same local tensor; gathered over the batch
+    axes first where split over them); anything else as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    names, axes = mesh.mesh_dim_names, S.batch_axes(mesh)
+    if any(n in axes and not pl.is_replicate()
+           for n, pl in zip(names, t.placements)):
+        t = t.redistribute(mesh, tuple(Replicate() if n in axes else pl
+                                       for n, pl in zip(names, t.placements)))
+    return DTensor.from_local(
+        t.to_local(), mesh[S.MODEL_AXIS],
+        (t.placements[names.index(S.MODEL_AXIS)],), shape=t.shape,
+        stride=t.stride())
+
+
+def _onto_mesh(t, mesh: DeviceMesh):
+    """The inverse of :func:`_onto_model_axis`: a DTensor of the model
+    axis as one of ``mesh``, replicated over its other axes."""
+    if not isinstance(t, DTensor):
+        return t
+    placements = [Replicate()] * mesh.ndim
+    placements[mesh.mesh_dim_names.index(S.MODEL_AXIS)] = t.placements[0]
+    return DTensor.from_local(t.to_local(), mesh, tuple(placements),
+                              shape=t.shape, stride=t.stride())
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _forward_on_model_axis(params, cfg, inputs, cache, decode_pos, *args):
+    """``forward`` of DTensors without ``mesh`` (the reference passes none
+    where the batch does not split over the data axes): every rank of a
+    data row computes the whole batch, so the step runs on the model
+    axis's 1-D mesh, each layer's weights gathered over the batch axes as
+    the layer comes (``_forward``'s ``onto``). On the full mesh the
+    propagation would be free to split the batch over the data axes,
+    unevenly where it does not divide them, which DTensor's views refuse.
+    The cache's local tensors are shared, so decode writes land in the
+    given cache; outputs come back on the full mesh, replicated over the
+    batch axes."""
+    mesh = next(t for t in (inputs, params["final_norm"])
+                if isinstance(t, DTensor)).device_mesh
+    top = {k: v if k == "blocks" else _onto_model_axis(v)
+           for k, v in params.items()}
+    sub_cache = None if cache is None else _map_leaves(_onto_model_axis,
+                                                       cache)
+    logits, aux, new_cache = _forward(
+        top, cfg, _onto_model_axis(inputs), sub_cache,
+        _onto_model_axis(decode_pos), *args, onto=_onto_model_axis)
+    if cache is not None:
+        new_cache = cache
+    elif new_cache is not None:
+        new_cache = _map_leaves(lambda t: _onto_mesh(t, mesh), new_cache)
+    return _onto_mesh(logits, mesh), _onto_mesh(aux, mesh), new_cache
+
+
 def _train_segment(blocks: dict, seg: Segment, cfg: ArchConfig,
                    x: torch.Tensor, positions: torch.Tensor, remat: bool,
-                   remat_segments: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                   remat_segments: bool, constrain=lambda x: x
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A segment's layers on a training forward: each layer under
     ``checkpoint`` with ``remat`` (its activations recomputed in the
     backward), and the whole segment under one more with
@@ -295,9 +413,10 @@ def _train_segment(blocks: dict, seg: Segment, cfg: ArchConfig,
     def layer(j: int, xx: torch.Tensor):
         p = _layer_params(blocks, seg, j)
         if seg.group == "mamba2":
-            return _mamba_layer_fwd(p, cfg, xx)[0]
-        xx, aux, _ = _attn_layer_fwd(p, cfg, xx, positions, seg.spec)
-        return (xx, aux) if moe else xx
+            return constrain(_mamba_layer_fwd(p, cfg, constrain(xx))[0])
+        xx, aux, _ = _attn_layer_fwd(p, cfg, constrain(xx), positions,
+                                     seg.spec)
+        return (constrain(xx), aux) if moe else constrain(xx)
 
     def run(xx: torch.Tensor):
         auxs = []
@@ -320,7 +439,8 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
             remat: bool = True,
             build_cache: bool = False,
             skip_head: bool = False,
-            remat_segments: bool = False
+            remat_segments: bool = False,
+            mesh: Optional[DeviceMesh] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run the model.
 
@@ -343,12 +463,39 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
     requires grad) recomputes each layer's activations in the backward
     with ``remat`` and each segment's with ``remat_segments``, as the
     reference's ``jax.checkpoint`` does; neither changes a number.
+    Parameters, inputs and caches may be DTensors (the mesh steps of
+    ``train/train_step`` and ``serving/decode``); then plain tensors made
+    here count as replicated, and with ``mesh`` the residual stream is
+    held at the reference's [batch(data), seq, d] at the embedding and at
+    each layer's input and output on train and prefill (the embedding
+    alone in decode), as the reference's ``constrain`` holds it.
     """
+    args = (params, cfg, inputs, cache, decode_pos, remat, build_cache,
+            skip_head, remat_segments, mesh)
+    if not (isinstance(inputs, DTensor)
+            or isinstance(params["final_norm"], DTensor)):
+        return _forward(*args)
+    with S.plain_tensors_replicated():
+        if mesh is None:
+            return _forward_on_model_axis(*args)
+        return _forward(*args)
+
+
+def _forward(params, cfg, inputs, cache, decode_pos, remat, build_cache,
+             skip_head, remat_segments, mesh, onto=None):
+    """``forward``'s body; ``onto`` (when given) maps each layer's weights
+    before the layer runs (:func:`_forward_on_model_axis`)."""
     decode = cache is not None
     if inputs.dim() == 3:       # a frontend's precomputed embeddings
         x = inputs.to(DTYPES[cfg.dtype]) @ params["frontend_proj"]
+    elif isinstance(params["embedding"], DTensor):
+        # DTensor's rules for a lookup in a vocab split over ranks, and
+        # for its backward, are the embedding op's
+        x = F.embedding(inputs, params["embedding"])
     else:
         x = params["embedding"][inputs]
+    constrain = _residual_constraint(mesh, x)
+    x = constrain(x)
     positions = decode_pos[:, None] if decode else \
         torch.arange(x.shape[1], device=x.device)[None]
     train = not decode and not build_cache and torch.is_grad_enabled() \
@@ -356,22 +503,31 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
 
     new_states: Dict[str, list] = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if isinstance(x, DTensor):      # a replicated scalar, as the losses
+        aux_total = DTensor.from_local(aux_total, x.device_mesh,
+                                       (Replicate(),) * x.device_mesh.ndim)
     for seg in build_plan(cfg)[0]:
         blocks = params["blocks"][seg.group]
+        if onto is not None and train:
+            blocks = _map_leaves(onto, blocks)
         if train:
             x, aux = _train_segment(blocks, seg, cfg, x, positions, remat,
-                                    remat_segments)
+                                    remat_segments, constrain)
             if aux is not None:
                 aux_total = aux_total + aux
             continue
         auxs = []
         for j in range(seg.length):
             p = _layer_params(blocks, seg, j)
+            if onto is not None:
+                p = _map_leaves(onto, p)
             state = None
             if decode:
                 layer = seg.cache_start + j
                 state = {name: a[layer]
                          for name, a in cache[seg.cache_group].items()}
+            if not decode:
+                x = constrain(x)
             if seg.group == "mamba2":
                 x, new_state = _mamba_layer_fwd(p, cfg, x, state,
                                                 decode=decode)
@@ -381,6 +537,8 @@ def forward(params: dict, cfg: ArchConfig, inputs: torch.Tensor, *,
                     pos=decode_pos, build_cache=build_cache)
                 if aux is not None:
                     auxs.append(aux)
+            if not decode:
+                x = constrain(x)
             if build_cache:
                 if seg.cache_group.endswith("@swa"):
                     new_state = {name: ring_pack(a, cfg.sliding_window)

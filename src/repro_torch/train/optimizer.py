@@ -7,6 +7,10 @@ parameter's dtype. Unlike the reference, which returns new trees,
 :func:`adamw_update` writes the new parameters and moments into the given
 tensors (a model's parameters and two float32 moments are most of a
 train step's device memory) and returns those same trees.
+
+Parameters and moments may be DTensors (the mesh step): each gradient is
+brought to its parameter's placements, the clip's norm is taken over the
+whole tree across ranks, and the update writes each rank's local shards.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.train import tree as T
 
@@ -51,7 +56,9 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init_opt_state(params: dict) -> OptState:
-    """Zero float32 moments shaped like ``params``, on their devices."""
+    """Zero float32 moments shaped like ``params``, on their devices (with
+    their placements for DTensor parameters; the step is a plain 0-d
+    tensor, the same on every rank)."""
     first = T.leaves(params)[0]
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
@@ -61,8 +68,16 @@ def init_opt_state(params: dict) -> OptState:
                       params))
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's value as a plain tensor (summed where partial)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+    """The L2 norm over every leaf of ``tree``; for DTensor leaves over
+    every rank's shard (each leaf's sum of squares reduced across
+    ranks)."""
+    return torch.sqrt(sum(_whole(torch.sum(torch.square(g.float())))
                           for g in T.leaves(tree)))
 
 
@@ -91,6 +106,9 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
     with torch.no_grad():
         for (_, p), g, m, v in zip(T.items(params), T.leaves(grads),
                                    T.leaves(state.mu), T.leaves(state.nu)):
+            if isinstance(p, DTensor):
+                g = g.redistribute(p.device_mesh, p.placements)
+                p, g, m, v = (t.to_local() for t in (p, g, m, v))
             upd(p, g, m, v)
     return params, OptState(step, state.mu, state.nu), {
         "grad_norm": gnorm, "lr": lr}

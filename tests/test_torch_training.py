@@ -16,6 +16,7 @@ product in another order, float32). Checkpoints load across packages
 """
 import dataclasses
 import functools
+import json
 import os
 import re
 import subprocess
@@ -440,15 +441,29 @@ def test_train_loss_decreases(arch, cpu_mesh):
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1, losses
 
 
-def test_one_rank_only(cpu_mesh, monkeypatch):
-    """A mesh of more than one rank is refused, not run replicated."""
-    cfg = get_arch("qwen3-1.7b").reduced()
-    monkeypatch.setattr(type(cpu_mesh), "size", lambda self, *a: 2)
-    for call in (lambda: TTS.make_train_step(cpu_mesh, cfg,
-                                             TO.AdamWConfig()),
-                 lambda: TTS.init_sharded(cpu_mesh, cfg)):
-        with pytest.raises(NotImplementedError, match="multi-rank"):
-            call()
+@pytest.mark.parametrize("arch", ARCHS)
+def test_four_ranks_match_one_rank(arch, cpu_mesh, tmp_path):
+    """``make_train_step`` and ``init_sharded`` on a (2, 2) mesh of four
+    gloo ranks (``tests/torch_mesh_ranks.py``) give the losses of the
+    same five steps on this process's (1, 1) mesh, within 1e-4."""
+    import torch_mesh_ranks as R
+    payload = dict(arch=arch, mesh=(2, 2), opt=REF_OPT, batch=8, seq=32,
+                   steps=5)
+    ranks = R.run_ranks(R.train_losses, payload, tmp_path)
+    cfg = get_arch(arch).reduced()
+    step_fn, _ = TTS.make_train_step(cpu_mesh, cfg,
+                                     TO.AdamWConfig(**REF_OPT))
+    params, opt_state = TTS.init_sharded(cpu_mesh, cfg, seed=0)
+    data = iter(TD.SyntheticLM(cfg, batch=8, seq_len=32, seed=0))
+    one = []
+    for _ in range(payload["steps"]):
+        b = next(data)
+        params, opt_state, m = step_fn(
+            params, opt_state,
+            {"inputs": b.inputs, "targets": b.targets, "mask": b.mask})
+        one.append(float(m["loss"]))
+    for losses in ranks:
+        np.testing.assert_allclose(losses, one, rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +607,71 @@ def test_launcher_trains_and_checkpoints(tmp_path):
                        out.stderr + out.stdout).groups()
     assert logged == (TC.tree_digest(params), TC.tree_digest(state.mu),
                       TC.tree_digest(state.nu))
+
+
+def _launch(tmp_path, name: str, env: dict, *extra: str):
+    """The launcher (reduced qwen3, 5 steps, with a checkpoint) started in
+    a subprocess of one CPU thread; returns the process and the path of
+    its checkpoint."""
+    ck = tmp_path / f"ck_{name}"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", **env)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--reduced", "--steps", "5", "--ckpt", str(ck), *extra], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, ck
+
+
+def _logged_losses(out: str) -> list:
+    return json.loads(re.search(r"\] losses (\[.*\])", out).group(1))
+
+
+def test_launcher_across_ranks(tmp_path):
+    """The launcher as four gloo ranks (``RANK`` and ``WORLD_SIZE`` in the
+    environment, ``--dist-init`` a file in the test's tmp dir) beside the
+    one-rank launcher: the same five losses within 1e-4; one checkpoint,
+    written by rank 0, that loads back to the digests the run logged,
+    with the keys, shapes and dtypes of the one-rank checkpoint and its
+    values within 1e-4 of each leaf's largest |value| but for under a
+    thousandth of the elements (the four ranks sum their products in
+    another order, so five chained AdamW steps part the two runs where a
+    gradient's sign is not determined in float32: the files are not equal
+    bit for bit)."""
+    one = _launch(tmp_path, "one", {"WORLD_SIZE": "1"})
+    rdv = f"file://{tmp_path / 'rendezvous'}"
+    ranks = [_launch(tmp_path, "four", {"RANK": str(r), "WORLD_SIZE": "4"},
+                     "--dist-init", rdv) for r in range(4)]
+    outs = []
+    for proc, _ in [one] + ranks:
+        out, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, out[-3000:]
+        outs.append(out)
+    losses_four = _logged_losses(outs[1])
+    assert len(losses_four) == 5
+    np.testing.assert_allclose(losses_four, _logged_losses(outs[0]), rtol=0,
+                               atol=1e-4)
+    logged = re.search(r"params digest (\w+), mu (\w+), nu (\w+)",
+                       outs[1]).groups()
+    assert all("params digest" not in out and "losses" not in out
+               for out in outs[2:])
+    cfg = get_arch("qwen3-1.7b").reduced()
+    template = TTS.abstract_params(cfg)
+    loaded = {}
+    for name, ck in (("one", one[1]), ("four", ranks[0][1])):
+        params, state, step = TC.load_checkpoint(
+            str(ck), template, TO.init_opt_state(template), device="cpu")
+        assert step == 5 and int(state.step) == 5
+        loaded[name] = (params, state.mu, state.nu)
+    assert logged == tuple(TC.tree_digest(t) for t in loaded["four"])
+    off = total = 0
+    for ours, ref in zip(loaded["four"], loaded["one"]):
+        for (key, t), (_, u) in zip(TT.items(ours), TT.items(ref)):
+            assert t.dtype == u.dtype and t.shape == u.shape, key
+            scale = max(float(u.abs().max()), 1e-30)
+            off += int(((t - u).abs() > 1e-4 * scale).sum())
+            total += u.numel()
+    assert off < 1e-3 * total, (off, total)
 
 
 def test_checkpoint_refuses_another_model(tmp_path):
